@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """End-to-end demo: synthesize images, run every model family, write
 artifacts into ./demo_out (masks, overlays, label maps, energy trace,
-evolution GIF). Runs on CPU or TPU.
+evolution GIF). Runs on CPU or GPU.
 
     python examples/demo.py [outdir]
 """
@@ -17,9 +17,9 @@ import numpy as np
 def main(outdir="demo_out"):
     import jax.numpy as jnp
 
-    from chan_vese_tpu import (CVParams, segment_fixed, segment_fused,
-                               segment_multiphase, segment_vector)
-    from chan_vese_tpu.utils import image_io, trace
+    from chan_vese import (CVParams, segment, segment_fixed,
+                           segment_multiphase, segment_vector)
+    from chan_vese.utils import image_io, trace
 
     out = Path(outdir)
     out.mkdir(exist_ok=True)
@@ -32,7 +32,7 @@ def main(outdir="demo_out"):
                     | (np.hypot(i - 170, j - 170) < 50), 217.0, 38.0)
     gray += 8 * rng.standard_normal(gray.shape)
     u = jnp.asarray(gray, jnp.float32)
-    res = segment_fused(u, p)
+    res = segment(u, p)
     print(f"scalar: {int(res.iters)} iters, c1={float(res.c1):.1f}, "
           f"c2={float(res.c2):.1f}")
     image_io.save_mask(out / "scalar_mask.png", res.mask)

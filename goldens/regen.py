@@ -18,9 +18,9 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp  # noqa: E402
 
 from fixtures import two_disks  # noqa: E402
-from chan_vese_tpu.params import CVParams  # noqa: E402
-from chan_vese_tpu.utils.init_phi import init_phi  # noqa: E402
-from chan_vese_tpu.utils.trace import write_energy_csv  # noqa: E402
+from chan_vese.params import CVParams  # noqa: E402
+from chan_vese.utils.init_phi import init_phi  # noqa: E402
+from chan_vese.utils.trace import write_energy_csv  # noqa: E402
 from native import baseline  # noqa: E402
 
 HERE = Path(__file__).resolve().parent

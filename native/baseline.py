@@ -102,8 +102,8 @@ def bench_mpixel_iters_per_sec(h=512, w=512, iters=20, p=None, repeats=3):
     """Measured single-core throughput of the canonical C scheme."""
     import time
 
-    from chan_vese_tpu.params import CVParams
-    from chan_vese_tpu.utils.init_phi import checkerboard
+    from chan_vese.params import CVParams
+    from chan_vese.utils.init_phi import checkerboard
 
     p = p or CVParams()
     rng = np.random.default_rng(0)

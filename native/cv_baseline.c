@@ -10,7 +10,7 @@
  * chip" comparison in bench.py.
  *
  * Conventions are shared bit-for-bit (in exact arithmetic) with
- * chan_vese_tpu/ops/sweep_np.py (NumPy) and ops/sweep.py::wavefront_step
+ * chan_vese/ops/sweep_np.py (NumPy) and ops/sweep.py::wavefront_step
  * (JAX): replica-eval Neumann boundaries (out-of-range differences vanish,
  * including inside the backward face coefficients), H_2/delta_2
  * regularization, raster in-place sweep, energy evaluated after each sweep
@@ -33,7 +33,7 @@ static inline double at(const double *phi, int H, int W, int i, int j) {
 }
 
 /* Face coefficients, replica-eval boundary convention (shared with
- * chan_vese_tpu/ops/numerics.py): every VALUE read clamps to the grid, so
+ * chan_vese/ops/numerics.py): every VALUE read clamps to the grid, so
  * out-of-range differences vanish - including inside the backward
  * coefficients A- (amcoef) and B- (bmcoef). */
 static inline double acoef(const double *phi, int H, int W, int i, int j,

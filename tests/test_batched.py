@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from chan_vese_tpu.models.batched import segment_batch, segment_stack_fixed
-from chan_vese_tpu.params import CVParams
+from chan_vese.models.batched import segment_batch, segment_stack_fixed
+from chan_vese.params import CVParams
 from fixtures import iou, two_disks
 
 F32 = jnp.float32
@@ -20,7 +20,7 @@ def _stack(n=6, h=48, w=48):
 
 
 def test_stack_fixed_matches_per_frame():
-    from chan_vese_tpu import segment_fixed
+    from chan_vese import segment_fixed
 
     stack, gts = _stack(4)
     u = jnp.asarray(stack, F32)

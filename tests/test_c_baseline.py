@@ -20,11 +20,11 @@ import pytest
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from fixtures import two_disks
-from chan_vese_tpu import CVParams, segment_fixed
-from chan_vese_tpu.ops import sweep_np
-from chan_vese_tpu.ops.reductions import energy as jenergy
-from chan_vese_tpu.ops.reductions import region_means as jmeans
-from chan_vese_tpu.utils.init_phi import init_phi
+from chan_vese import CVParams, segment_fixed
+from chan_vese.ops import sweep_np
+from chan_vese.ops.reductions import energy as jenergy
+from chan_vese.ops.reductions import region_means as jmeans
+from chan_vese.utils.init_phi import init_phi
 from native import baseline
 
 F64 = jnp.float64

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from chan_vese_tpu import chan_vese
+from chan_vese import chan_vese
 from fixtures import colored_squares, iou, two_disks
 
 
@@ -38,8 +38,8 @@ def test_init_level_set_array():
     """skimage-compat: a custom phi0 array as init_level_set."""
     import numpy as np
 
-    from chan_vese_tpu.compat import chan_vese
-    from chan_vese_tpu.utils.init_phi import init_phi
+    from chan_vese.compat import chan_vese
+    from chan_vese.utils.init_phi import init_phi
     from fixtures import iou, two_disks
 
     img, gt = two_disks(64, 128, noise=6.0)
@@ -54,7 +54,7 @@ def test_init_level_set_array():
 def test_disk_init_aliases():
     import numpy as np
 
-    from chan_vese_tpu.utils.init_phi import init_phi
+    from chan_vese.utils.init_phi import init_phi
 
     d = np.asarray(init_phi((64, 64), "disk"))
     c = np.asarray(init_phi((64, 64), "circle"))

@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu import CVParams, segment_fixed
-from chan_vese_tpu.utils.init_phi import init_phi
+from chan_vese import CVParams, segment_fixed
+from chan_vese.utils.init_phi import init_phi
 from fixtures import two_disks
 
 pytestmark = pytest.mark.skipif(

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu import CVParams, segment, segment_fused
+from chan_vese import CVParams, segment
 from fixtures import iou, two_disks
 
 F32 = jnp.float32
@@ -25,11 +25,14 @@ def test_jnp_driver_conv_norms(norm):
 
 
 @pytest.mark.parametrize("norm", ["rms", "mean_abs"])
-def test_fused_driver_conv_norms(norm):
+def test_vector_driver_conv_norms(norm):
+    from chan_vese import segment_vector
+
     img, gt = two_disks(64, 128, noise=6.0)
+    rgb = np.stack([img, 0.8 * img + 20.0, img], axis=-1)
     p = CVParams(init="circle", conv_norm=norm, tol=0.5, max_iter=200,
                  min_iter=30)
-    res = segment_fused(jnp.asarray(img, F32), p, interpret=True)
+    res = segment_vector(jnp.asarray(rgb, F32), p)
     assert int(res.iters) < 200
     assert iou(np.asarray(res.mask), gt) >= 0.98
 
@@ -38,8 +41,8 @@ def test_fused_driver_conv_norms(norm):
 def test_sharded_driver_conv_norms(norm):
     if jax.device_count() < 8:
         pytest.skip("needs 8 fake devices")
-    from chan_vese_tpu.parallel.mesh import make_grid_mesh
-    from chan_vese_tpu.parallel.sharded import segment_sharded
+    from chan_vese.parallel.mesh import make_grid_mesh
+    from chan_vese.parallel.sharded import segment_sharded
 
     mesh = make_grid_mesh(2, 4)
     img, gt = two_disks(64, 64, noise=6.0)
@@ -50,13 +53,18 @@ def test_sharded_driver_conv_norms(norm):
     assert iou(np.asarray(res.mask), gt) >= 0.98
 
 
-def test_fused_and_jnp_agree_on_rms_iteration_count():
+def test_sharded_and_jnp_agree_on_rms_iteration_count():
+    if jax.device_count() < 8:
+        pytest.skip("needs 8 fake devices")
+    from chan_vese.parallel.mesh import make_grid_mesh
+    from chan_vese.parallel.sharded import segment_sharded
+
     img, _ = two_disks(64, 128, noise=6.0)
     u = jnp.asarray(img, F32)
     p = CVParams(init="circle", conv_norm="rms", tol=0.5, max_iter=200,
                  min_iter=30)
     a = int(segment(u, p).iters)
-    b = int(segment_fused(u, p, interpret=True).iters)
+    b = int(segment_sharded(u, p, make_grid_mesh(2, 4)).iters)
     assert abs(a - b) <= 2, (a, b)
 
 
@@ -66,13 +74,13 @@ def test_divergence_aborts_loop():
     burning max_iter iterations."""
     import numpy as np
 
-    from chan_vese_tpu import CVParams, segment, segment_fused
-    from chan_vese_tpu.parallel.mesh import make_grid_mesh
-    from chan_vese_tpu.parallel.sharded import segment_sharded
+    from chan_vese import CVParams, segment
+    from chan_vese.parallel.mesh import make_grid_mesh
+    from chan_vese.parallel.sharded import segment_sharded
 
     bad = jnp.full((64, 128), jnp.nan, jnp.float32)
     p = CVParams(conv_norm="rms", max_iter=200)
-    for fn, kw in ((segment, {}), (segment_fused, {"interpret": True})):
+    for fn, kw in ((segment, {}),):
         r = fn(bad, p, **kw)
         assert int(r.iters) <= 2, fn
         assert np.isnan(float(r.delta)), fn
@@ -87,13 +95,13 @@ def test_divergence_aborts_loop_flips_norm():
     metric must abort instead."""
     import numpy as np
 
-    from chan_vese_tpu import CVParams, segment, segment_fused
-    from chan_vese_tpu.parallel.mesh import make_grid_mesh
-    from chan_vese_tpu.parallel.sharded import segment_sharded
+    from chan_vese import CVParams, segment
+    from chan_vese.parallel.mesh import make_grid_mesh
+    from chan_vese.parallel.sharded import segment_sharded
 
     bad = jnp.full((64, 128), jnp.nan, jnp.float32)
     p = CVParams(conv_norm="flips", max_iter=200, min_iter=0)
-    for fn, kw in ((segment, {}), (segment_fused, {"interpret": True})):
+    for fn, kw in ((segment, {}),):
         r = fn(bad, p, **kw)
         assert int(r.iters) <= 2, fn
         assert not np.isfinite(float(r.delta)), fn
@@ -106,8 +114,8 @@ def test_divergence_aborts_multiphase_flips():
     finite garbage on a NaN level set)."""
     import numpy as np
 
-    from chan_vese_tpu import CVParams
-    from chan_vese_tpu.models.multiphase import segment_multiphase
+    from chan_vese import CVParams
+    from chan_vese.models.multiphase import segment_multiphase
 
     bad = jnp.full((32, 32), jnp.nan, jnp.float32)
     p = CVParams(max_iter=100, min_iter=0)
@@ -121,7 +129,7 @@ def test_inf_delta_aborts_loop():
     overflow) must abort too - the predicate is ~isfinite, not isnan."""
     import numpy as np
 
-    from chan_vese_tpu import CVParams, segment
+    from chan_vese import CVParams, segment
 
     bad = jnp.full((64, 128), jnp.inf, jnp.float32)
     p = CVParams(conv_norm="rms", max_iter=200, min_iter=0)
@@ -132,7 +140,7 @@ def test_inf_delta_aborts_loop():
 
 def test_divergence_guard_does_not_stop_healthy_runs():
     """The guard must be inert on finite runs (initial delta is +inf)."""
-    from chan_vese_tpu import CVParams, segment
+    from chan_vese import CVParams, segment
     from fixtures import two_disks
 
     img, gt = two_disks(64, 128, noise=6.0)

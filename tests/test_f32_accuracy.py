@@ -1,20 +1,20 @@
 """f32 summation accuracy at 4K scale (SURVEY.md §7 hard part "f32 vs
-f64"; VERDICT r1 missing #4).
+f64").
 
 The 1e-5 relative energy-trace criterion (BASELINE.json:5) must survive
 f32 reductions over 8.3 Mpixels. XLA reduces tree-wise (error ~ eps *
-log2 N, about 3e-6 relative), and the Pallas kernel sums per ~1 Mpixel
-band in-kernel before a tiny cross-band combine - both are pinned here
-against the f64 ground truth at the full 4K eval shape.
+log2 N, about 3e-6 relative); this is pinned here against the f64 ground
+truth at the full 4K eval shape, on the CPU and (marked ``gpu``) on the
+GPU.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu import CVParams
-from chan_vese_tpu.ops.reductions import energy, means_from_sums, region_means
-from chan_vese_tpu.utils.init_phi import checkerboard
+from chan_vese import CVParams
+from chan_vese.ops.reductions import energy, means_from_sums, region_means
+from chan_vese.utils.init_phi import checkerboard
 
 H, W = 2160, 3840
 
@@ -53,71 +53,40 @@ def test_energy_f32_vs_f64_at_4k(big):
     assert _rel(e32, e64) < 1e-5
 
 
-def test_kernel_partials_f32_vs_f64_at_4k(big):
-    """The banded kernel's per-band f32 partial sums (the carried-means
-    source, ops/pallas_sweep.py) at the 4K eval shape vs f64 sums of the
-    same phi_new."""
-    from chan_vese_tpu.ops.numerics import heaviside
-    from chan_vese_tpu.ops.pallas_sweep import fused_iteration
+def _step_sums_vs_f64(u, phi, device=None):
+    """One f32 red-black iteration (models/scalar.step) at the 4K eval
+    shape, then the f32 region sums of the new phi checked against f64
+    sums of the SAME phi_new."""
+    import jax
 
+    from chan_vese.models.scalar import step
+    from chan_vese.ops.reductions import region_sums
+
+    p = CVParams()
+    u32 = jax.device_put(np.asarray(u, np.float32), device)
+    phi32 = jax.device_put(np.asarray(phi, np.float32), device)
+    phi_new = jax.jit(lambda a, b: step(a, b, p)[0])(phi32, u32)
+    s_uh, s_h, _, _ = region_sums(u32, phi_new, p.eps)
+    pn = np.asarray(phi_new, np.float64)
+    h64 = 0.5 + (1.0 / np.pi) * np.arctan(pn / p.eps)
+    assert _rel(s_uh, float((u * h64).sum())) < 1e-5
+    assert _rel(s_h, float(h64.sum())) < 1e-5
+    c1, c2 = means_from_sums(*region_sums(u32, phi_new, p.eps))
+    c1_64 = (u * h64).sum() / h64.sum()
+    c2_64 = (u.sum() - (u * h64).sum()) / (H * W - h64.sum())
+    assert _rel(c1, c1_64) < 1e-5
+    assert _rel(c2, c2_64) < 1e-5
+
+
+def test_step_sums_f32_vs_f64_at_4k(big):
+    """XLA's f32 reduction order over 8.3 Mpixels after one iteration."""
     u, phi = big
-    p = CVParams()
-    u32 = jnp.asarray(u, jnp.float32)
-    phi32 = jnp.asarray(phi, jnp.float32)
-    c1, c2 = region_means(u32, phi32, p.eps)
-    phi_new, parts = fused_iteration(phi32, u32, c1, c2, p, interpret=True)
-
-    n_pix = jnp.float32(H * W)
-    c1k, c2k = means_from_sums(parts[0], parts[1], jnp.sum(u32), n_pix)
-
-    # f64 ground truth on the SAME phi_new
-    phi64 = jnp.asarray(np.asarray(phi_new), jnp.float64)
-    u64 = jnp.asarray(u, jnp.float64)
-    h64 = heaviside(phi64, p.eps)
-    s_uh = jnp.sum(u64 * h64)
-    s_h = jnp.sum(h64)
-    c1_64 = s_uh / s_h
-    c2_64 = (jnp.sum(u64) - s_uh) / (H * W - s_h)
-    assert _rel(parts[0], s_uh) < 1e-5
-    assert _rel(parts[1], s_h) < 1e-5
-    assert _rel(c1k, c1_64) < 1e-5
-    assert _rel(c2k, c2_64) < 1e-5
+    _step_sums_vs_f64(u, phi)
 
 
-@pytest.mark.tpu
-def test_compiled_kernel_partials_4k_vs_f64():
-    """VERDICT r2 item 7: the REAL Mosaic-compiled kernels' in-kernel
-    f32 summation order at the full 4K eval shape, pinned against f64
-    numpy ground truth on the same phi_new (the interpret-mode variant
-    above cannot see Mosaic's actual reduction order)."""
-    from chan_vese_tpu.ops import pallas_banded
-    from chan_vese_tpu.ops.pallas_sweep import fused_iteration
-
-    rng = np.random.default_rng(7)
-    u = rng.uniform(0.0, 255.0, (H, W))
-    phi = np.asarray(checkerboard((H, W), jnp.float32), np.float64)
-    u32 = jnp.asarray(u, jnp.float32)
-    phi32 = jnp.asarray(phi, jnp.float32)
-    p = CVParams()
-    c1, c2 = region_means(u32, phi32, p.eps)
-
-    def f64_means_truth(phi_new):
-        pn = np.asarray(phi_new, np.float64)
-        h64 = 0.5 + (1.0 / np.pi) * np.arctan(pn / p.eps)
-        return float((u * h64).sum()), float(h64.sum())
-
-    # banded flagship (k=8, unroll=4 - the headline config)
-    phi_b, parts_b = pallas_banded.banded_chunk(phi32, u32, c1, c2, p,
-                                                k=8, unroll=4)
-    s_uh, s_h = f64_means_truth(phi_b)
-    assert _rel(parts_b[0], s_uh) < 1e-5
-    assert _rel(parts_b[1], s_h) < 1e-5
-
-    # fused per-iteration kernel, incl. the delta/flip transition slots
-    phi_f, parts_f = fused_iteration(phi32, u32, c1, c2, p)
-    s_uh, s_h = f64_means_truth(phi_f)
-    assert _rel(parts_f[0], s_uh) < 1e-5
-    assert _rel(parts_f[1], s_h) < 1e-5
-    d64 = np.asarray(phi_f, np.float64) - phi
-    assert _rel(parts_f[2], float((d64 * d64).sum())) < 1e-4
-    assert _rel(parts_f[4], float(np.abs(d64).sum())) < 1e-4
+@pytest.mark.gpu
+def test_gpu_step_sums_4k_vs_f64(big, gpu):
+    """The same check with the iteration and the sums compiled for the
+    GPU, whose reduction order differs from the CPU's."""
+    u, phi = big
+    _step_sums_vs_f64(u, phi, gpu)

@@ -22,9 +22,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu.params import CVParams
-from chan_vese_tpu.parallel import mesh as meshmod
-from chan_vese_tpu.utils import checkpoint_sharded as cks
+from chan_vese.params import CVParams
+from chan_vese.parallel import mesh as meshmod
+from chan_vese.utils import checkpoint_sharded as cks
 from fixtures import two_disks
 
 _CHILD = r"""
@@ -39,9 +39,9 @@ import numpy as np
 
 sys.path.insert(0, {repo!r})
 sys.path.insert(0, {tests!r})
-from chan_vese_tpu.params import CVParams
-from chan_vese_tpu.parallel import mesh as meshmod
-from chan_vese_tpu.utils import checkpoint_sharded as cks
+from chan_vese.params import CVParams
+from chan_vese.parallel import mesh as meshmod
+from chan_vese.utils import checkpoint_sharded as cks
 from fixtures import two_disks
 
 mesh = meshmod.make_grid_mesh(2, 4)
@@ -64,8 +64,7 @@ def save_and_die_on_third(path_dir, step, phi, c1=None, c2=None):
 
 cks.save_sharded = save_and_die_on_third
 cks.segment_sharded_with_checkpoints(u0, p, mesh, iters=80,
-                                     ckpt_dir={ckdir!r}, every=20,
-                                     use_pallas=False)
+                                     ckpt_dir={ckdir!r}, every=20)
 raise SystemExit("unreachable: the injected fault did not fire")
 """
 
@@ -105,12 +104,10 @@ def test_sigkill_mid_save_resumes_bit_exact(grid_mesh, tmp_path):
     u0 = jnp.asarray(img, jnp.float64)
     p = CVParams()
     res = cks.segment_sharded_with_checkpoints(
-        u0, p, grid_mesh, iters=80, ckpt_dir=ckdir, every=20,
-        use_pallas=False)
+        u0, p, grid_mesh, iters=80, ckpt_dir=ckdir, every=20)
     # it RESUMED (wrote 60 and 80 on top of 40) rather than replaying
     names = {f.name for f in ckdir.iterdir()}
     assert {"ckpt_00000060", "ckpt_00000080"} <= names, names
     ref = cks.segment_sharded_with_checkpoints(
-        u0, p, grid_mesh, iters=80, ckpt_dir=tmp_path / "ref", every=20,
-        use_pallas=False)
+        u0, p, grid_mesh, iters=80, ckpt_dir=tmp_path / "ref", every=20)
     np.testing.assert_array_equal(np.asarray(res.phi), np.asarray(ref.phi))

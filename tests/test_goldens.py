@@ -7,9 +7,9 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 
-from chan_vese_tpu import CVParams, segment_fixed
-from chan_vese_tpu.utils.init_phi import init_phi
-from chan_vese_tpu.utils.trace import read_energy_csv
+from chan_vese import CVParams, segment_fixed
+from chan_vese.utils.init_phi import init_phi
+from chan_vese.utils.trace import read_energy_csv
 from fixtures import two_disks
 
 GOLD = Path(__file__).resolve().parents[1] / "goldens"

@@ -1,80 +1,25 @@
 """Morphological Chan-Vese (MorphACWE) family tests.
 
 Golden = an independent numpy transcription of the published scheme
-(Marquez-Neila et al., PAMI 2014) written directly in this file with the
+(Marquez-Neila et al., PAMI 2014; chan_vese/ops/morph_np.py) with the
 framework's replica/Neumann edge convention (ops/morph.py docstring).
 The binary state makes jnp-vs-numpy equivalence EXACT in f64 for seeded
 random inputs (the only approximation risk is a data force within one
 reduction-order ulp of zero, measure-zero for continuous random images).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu.compat import (checkerboard_level_set, disk_level_set,
-                                  morphological_chan_vese)
-from chan_vese_tpu.models.morph import (segment_morph, segment_morph_fixed)
-from chan_vese_tpu.params import CVParams
+from chan_vese.compat import (checkerboard_level_set, disk_level_set,
+                              morphological_chan_vese)
+from chan_vese.models.morph import (segment_morph, segment_morph_fixed)
+from chan_vese.ops.morph_np import morph_acwe as np_morph_acwe
+from chan_vese.params import CVParams
 
 from fixtures import two_disks, iou
-
-
-# --------------------------------------------------------------------------
-# numpy golden (independent transcription, replica edges)
-# --------------------------------------------------------------------------
-
-def _shift(a, di, dj):
-    H, W = a.shape
-    i = np.clip(np.arange(H) + di, 0, H - 1)
-    j = np.clip(np.arange(W) + dj, 0, W - 1)
-    return a[np.ix_(i, j)]
-
-
-def _np_sup_inf(u):
-    lines = [
-        np.minimum(np.minimum(_shift(u, 0, -1), _shift(u, 0, 1)), u),
-        np.minimum(np.minimum(_shift(u, -1, 0), _shift(u, 1, 0)), u),
-        np.minimum(np.minimum(_shift(u, -1, -1), _shift(u, 1, 1)), u),
-        np.minimum(np.minimum(_shift(u, -1, 1), _shift(u, 1, -1)), u),
-    ]
-    return np.maximum.reduce(lines)
-
-
-def _np_inf_sup(u):
-    lines = [
-        np.maximum(np.maximum(_shift(u, 0, -1), _shift(u, 0, 1)), u),
-        np.maximum(np.maximum(_shift(u, -1, 0), _shift(u, 1, 0)), u),
-        np.maximum(np.maximum(_shift(u, -1, -1), _shift(u, 1, 1)), u),
-        np.maximum(np.maximum(_shift(u, -1, 1), _shift(u, 1, -1)), u),
-    ]
-    return np.minimum.reduce(lines)
-
-
-def np_morph_acwe(img, ls, iters, smoothing=1, l1=1.0, l2=1.0):
-    """Reference MorphACWE: force step then `smoothing` alternating
-    SIoIS / ISoSI cycles, counter advancing per call."""
-    img = np.asarray(img, np.float64)
-    u = np.asarray(ls, np.float64)
-    l1 = np.asarray(l1, np.float64)
-    l2 = np.asarray(l2, np.float64)
-    k = 0
-    for _ in range(iters):
-        w = u[..., None] if img.ndim == 3 else u
-        c1 = (img * w).sum(axis=(0, 1)) / (u.sum() + 1e-8)
-        c0 = (img * (1.0 - w)).sum(axis=(0, 1)) / ((1.0 - u).sum() + 1e-8)
-        f = l1 * (img - c1) ** 2 - l2 * (img - c0) ** 2
-        if img.ndim == 3:
-            f = f.sum(-1)
-        gx = _shift(u, 1, 0) - _shift(u, -1, 0)
-        gy = _shift(u, 0, 1) - _shift(u, 0, -1)
-        aux = (np.abs(gx) + np.abs(gy)) * f
-        u = np.where(aux < 0, 1.0, np.where(aux > 0, 0.0, u))
-        for _s in range(smoothing):
-            u = (_np_sup_inf(_np_inf_sup(u)) if k % 2 == 0
-                 else _np_inf_sup(_np_sup_inf(u)))
-            k += 1
-    return u
 
 
 # --------------------------------------------------------------------------
@@ -240,18 +185,18 @@ def test_compat_custom_init_array_and_errors():
 
 
 # --------------------------------------------------------------------------
-# on-chip
+# on the GPU (marked gpu; skipped without one)
 # --------------------------------------------------------------------------
 
-@pytest.mark.tpu
-def test_morph_tpu_matches_cpu_masks():
-    """Compiled f32 on the chip converges to the same mask as the f64 CPU
-    run on a clean synthetic (binary state: only force-sign ties could
+@pytest.mark.gpu
+def test_morph_gpu_matches_cpu_masks(gpu):
+    """Compiled f32 on the GPU converges to the same mask as the f64
+    golden on a clean synthetic (binary state: only force-sign ties could
     differ, and the synthetic has none)."""
     img, gt = two_disks(256, 256, noise=6.0, dtype=np.float32)
     ls0 = checkerboard_level_set(img.shape).astype(np.float32)
-    res = segment_morph(jnp.asarray(img), CVParams(max_iter=300),
-                        ls0=jnp.asarray(ls0))
+    res = segment_morph(jax.device_put(img, gpu), CVParams(max_iter=300),
+                        ls0=jax.device_put(ls0, gpu))
     m = np.asarray(res.mask)
     assert _iou_sym(m, gt) >= 0.99
     want = np_morph_acwe(img, ls0, iters=int(res.iters), smoothing=1)
@@ -264,8 +209,8 @@ def test_morph_tpu_matches_cpu_masks():
 # --------------------------------------------------------------------------
 
 def test_cli_morph(tmp_path):
-    from chan_vese_tpu.cli import main
-    from chan_vese_tpu.utils import image_io
+    from chan_vese.cli import main
+    from chan_vese.utils import image_io
 
     img, gt = two_disks(96, 96, noise=6.0)
     src = tmp_path / "in.npy"
@@ -311,8 +256,8 @@ def test_sharded_matches_unsharded_exact():
     (2x4 mesh; only a force-sign tie within one reduction-order ulp could
     differ, absent on the seeded image), with the result still sharded
     over every device."""
-    from chan_vese_tpu.models.morph import segment_morph_sharded
-    from chan_vese_tpu.parallel.mesh import make_grid_mesh
+    from chan_vese.models.morph import segment_morph_sharded
+    from chan_vese.parallel.mesh import make_grid_mesh
 
     img, gt = two_disks(96, 96, noise=8.0)
     mesh = make_grid_mesh(2, 4)
@@ -336,8 +281,8 @@ def test_sharded_matches_unsharded_exact():
 
 
 def test_cli_morph_mesh(tmp_path):
-    from chan_vese_tpu.cli import main
-    from chan_vese_tpu.utils import image_io
+    from chan_vese.cli import main
+    from chan_vese.utils import image_io
 
     img, gt = two_disks(96, 96, noise=6.0)
     src = tmp_path / "in.npy"
@@ -360,7 +305,7 @@ def test_lean_iterations_driver_matches_traced():
     """segment_morph_iterations (the bench/raw-throughput path) runs the
     exact trajectory of segment_morph_fixed, including the alternation
     offset."""
-    from chan_vese_tpu.models.morph import segment_morph_iterations
+    from chan_vese.models.morph import segment_morph_iterations
 
     rng = np.random.default_rng(1)
     img = jnp.asarray(rng.uniform(0, 255, (48, 64)))

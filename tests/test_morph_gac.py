@@ -8,84 +8,19 @@ in f64 on seeded random inputs (only an attraction-force tie within one
 ulp of zero could differ, measure-zero for continuous random data).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu.compat import (disk_level_set, inverse_gaussian_gradient,
-                                  morphological_geodesic_active_contour)
-from chan_vese_tpu.models.morph_gac import segment_gac, segment_gac_fixed
-from chan_vese_tpu.ops.morph import gaussian_blur
-from chan_vese_tpu.params import CVParams
+from chan_vese.compat import (disk_level_set, inverse_gaussian_gradient,
+                              morphological_geodesic_active_contour)
+from chan_vese.models.morph_gac import segment_gac, segment_gac_fixed
+from chan_vese.ops.morph import gaussian_blur
+from chan_vese.ops.morph_np import morph_gac as np_morph_gac
+from chan_vese.params import CVParams
 
 from fixtures import iou
-
-
-# --------------------------------------------------------------------------
-# numpy golden (independent transcription, replica edges)
-# --------------------------------------------------------------------------
-
-def _shift(a, di, dj):
-    H, W = a.shape
-    i = np.clip(np.arange(H) + di, 0, H - 1)
-    j = np.clip(np.arange(W) + dj, 0, W - 1)
-    return a[np.ix_(i, j)]
-
-
-def _np_dilate8(u):
-    return np.maximum.reduce([_shift(u, di, dj)
-                              for di in (-1, 0, 1) for dj in (-1, 0, 1)])
-
-
-def _np_erode8(u):
-    return np.minimum.reduce([_shift(u, di, dj)
-                              for di in (-1, 0, 1) for dj in (-1, 0, 1)])
-
-
-def _np_sup_inf(u):
-    lines = [
-        np.minimum(np.minimum(_shift(u, 0, -1), _shift(u, 0, 1)), u),
-        np.minimum(np.minimum(_shift(u, -1, 0), _shift(u, 1, 0)), u),
-        np.minimum(np.minimum(_shift(u, -1, -1), _shift(u, 1, 1)), u),
-        np.minimum(np.minimum(_shift(u, -1, 1), _shift(u, 1, -1)), u),
-    ]
-    return np.maximum.reduce(lines)
-
-
-def _np_inf_sup(u):
-    lines = [
-        np.maximum(np.maximum(_shift(u, 0, -1), _shift(u, 0, 1)), u),
-        np.maximum(np.maximum(_shift(u, -1, 0), _shift(u, 1, 0)), u),
-        np.maximum(np.maximum(_shift(u, -1, -1), _shift(u, 1, 1)), u),
-        np.maximum(np.maximum(_shift(u, -1, 1), _shift(u, 1, -1)), u),
-    ]
-    return np.minimum.reduce(lines)
-
-
-def np_morph_gac(g, ls, iters, smoothing=1, balloon=0, threshold=0.5):
-    """Reference MorphGAC: balloon (full-3x3 dilate/erode where the edge
-    map clears threshold/|balloon|), attraction (sign of grad g . grad u),
-    then ``smoothing`` alternating SIoIS / ISoSI cycles."""
-    g = np.asarray(g, np.float64)
-    u = np.asarray(ls, np.float64)
-    dgx = 0.5 * (_shift(g, 1, 0) - _shift(g, -1, 0))
-    dgy = 0.5 * (_shift(g, 0, 1) - _shift(g, 0, -1))
-    mask = (g > threshold / abs(balloon)) if balloon else None
-    k = 0
-    for _ in range(iters):
-        if balloon > 0:
-            u = np.where(mask, _np_dilate8(u), u)
-        elif balloon < 0:
-            u = np.where(mask, _np_erode8(u), u)
-        dux = 0.5 * (_shift(u, 1, 0) - _shift(u, -1, 0))
-        duy = 0.5 * (_shift(u, 0, 1) - _shift(u, 0, -1))
-        aux = dgx * dux + dgy * duy
-        u = np.where(aux > 0, 1.0, np.where(aux < 0, 0.0, u))
-        for _s in range(smoothing):
-            u = (_np_sup_inf(_np_inf_sup(u)) if k % 2 == 0
-                 else _np_inf_sup(_np_sup_inf(u)))
-            k += 1
-    return u
 
 
 def _disk_image(n=96, r=28, lo=20.0, hi=220.0, noise=0.0, seed=0):
@@ -240,8 +175,8 @@ def test_compat_iter_callback_and_errors():
 # --------------------------------------------------------------------------
 
 def test_cli_morph_gac(tmp_path):
-    from chan_vese_tpu.cli import main
-    from chan_vese_tpu.utils import image_io
+    from chan_vese.cli import main
+    from chan_vese.utils import image_io
 
     img, gt = _disk_image(noise=3.0)
     src = tmp_path / "in.npy"
@@ -287,8 +222,8 @@ def test_sharded_matches_unsharded_exact():
     """segment_gac_sharded == segment_gac exactly on the binary state
     (2x4 mesh). The GAC loop has NO global reductions, so there isn't
     even a reduction-order tie to worry about - equality is structural."""
-    from chan_vese_tpu.models.morph_gac import segment_gac_sharded
-    from chan_vese_tpu.parallel.mesh import make_grid_mesh
+    from chan_vese.models.morph_gac import segment_gac_sharded
+    from chan_vese.parallel.mesh import make_grid_mesh
 
     img, gt = _disk_image()
     g = jnp.asarray(inverse_gaussian_gradient(img, alpha=5.0, sigma=2.0),
@@ -310,19 +245,20 @@ def test_sharded_matches_unsharded_exact():
 
 
 # --------------------------------------------------------------------------
-# on-chip
+# on the GPU (marked gpu; skipped without one)
 # --------------------------------------------------------------------------
 
-@pytest.mark.tpu
-def test_gac_tpu_matches_cpu_masks():
-    """Compiled f32 on the chip converges to the same mask as the f64
+@pytest.mark.gpu
+def test_gac_gpu_matches_cpu_masks(gpu):
+    """Compiled f32 on the GPU converges to the same mask as the f64
     golden on a clean synthetic."""
     img, gt = _disk_image(n=256, r=80, noise=3.0)
     g32 = inverse_gaussian_gradient(img.astype(np.float32), alpha=5.0,
                                     sigma=2.0)
     seed = disk_level_set(img.shape, radius=20).astype(np.float32)
-    res = segment_gac(jnp.asarray(g32), CVParams(max_iter=400),
-                      ls0=jnp.asarray(seed), balloon=1, threshold=0.3)
+    res = segment_gac(jax.device_put(g32, gpu), CVParams(max_iter=400),
+                      ls0=jax.device_put(seed, gpu), balloon=1,
+                      threshold=0.3)
     m = np.asarray(res.mask)
     assert iou(m, gt) >= 0.97
     want = np_morph_gac(g32.astype(np.float64), seed, iters=int(res.iters),
@@ -335,7 +271,7 @@ def test_lean_iterations_driver_matches_traced():
     """segment_gac_iterations (the bench/raw-throughput path) runs the
     exact trajectory of segment_gac_fixed, including the alternation
     offset."""
-    from chan_vese_tpu.models.morph_gac import segment_gac_iterations
+    from chan_vese.models.morph_gac import segment_gac_iterations
 
     rng = np.random.default_rng(2)
     g = jnp.asarray(rng.uniform(0.05, 1.0, (48, 64)))

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu.models import multiphase as mp
-from chan_vese_tpu.params import CVParams
+from chan_vese.models import multiphase as mp
+from chan_vese.params import CVParams
 from fixtures import four_regions
 
 F64 = jnp.float64
@@ -89,8 +89,8 @@ def test_multiphase_energy_decreases():
 
 def test_m1_reduces_to_scalar_masks():
     """M=1 multiphase == two-phase scalar Chan-Vese (same converged mask)."""
-    from chan_vese_tpu import segment_fixed
-    from chan_vese_tpu.utils.init_phi import init_phi
+    from chan_vese import segment_fixed
+    from chan_vese.utils.init_phi import init_phi
     from fixtures import two_disks, iou
 
     img, gt = two_disks(48, 48, noise=4.0)

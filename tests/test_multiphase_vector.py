@@ -4,8 +4,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from chan_vese_tpu.models import multiphase as mp
-from chan_vese_tpu.params import CVParams
+from chan_vese.models import multiphase as mp
+from chan_vese.params import CVParams
 
 
 def _rgb_four_regions(h=64, w=64, noise=3.0, seed=0):

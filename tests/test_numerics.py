@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu.ops import numerics as nm
+from chan_vese.ops import numerics as nm
 
 F64 = jnp.float64
 

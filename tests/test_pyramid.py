@@ -13,12 +13,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu import CVParams
-from chan_vese_tpu.models.pyramid import (downsample2x, plan_levels,
-                                          segment_pyramid,
-                                          segment_pyramid_multiphase,
-                                          upsample_phi2x)
-from chan_vese_tpu.models.scalar import segment
+from chan_vese import CVParams
+from chan_vese.models.pyramid import (downsample2x, plan_levels,
+                                      segment_pyramid,
+                                      segment_pyramid_multiphase,
+                                      upsample_phi2x)
+from chan_vese.models.scalar import segment
 from fixtures import colored_squares, four_regions, iou, two_disks
 
 F64 = jnp.float64
@@ -28,7 +28,7 @@ F64 = jnp.float64
 def grid_mesh():
     if jax.device_count() < 8:
         pytest.skip("needs 8 (fake) devices")
-    from chan_vese_tpu.parallel import mesh as meshmod
+    from chan_vese.parallel import mesh as meshmod
     return meshmod.make_grid_mesh(2, 4)
 
 
@@ -150,7 +150,7 @@ def test_pyramid_phi0_seeds_coarsest_level():
 
 
 def test_plan_levels_sharded_clips_on_mesh_constraints():
-    from chan_vese_tpu.models.pyramid import plan_levels_sharded
+    from chan_vese.models.pyramid import plan_levels_sharded
 
     # unconstrained: same as plan_levels
     assert plan_levels_sharded(512, 512, 1, 1, min_dim=32) == \
@@ -177,7 +177,7 @@ def test_pyramid_sharded_matches_single_chip(grid_mesh):
     img, gt = two_disks(256, 256, noise=8.0)
     u = jnp.asarray(img, F64)
     p = CVParams(init="circle")
-    from chan_vese_tpu.models.pyramid import segment_pyramid_sharded
+    from chan_vese.models.pyramid import segment_pyramid_sharded
 
     single = segment_pyramid(u, p, min_dim=32)
     shard = segment_pyramid_sharded(u, p, grid_mesh, min_dim=32)
@@ -190,15 +190,15 @@ def test_pyramid_sharded_comm_k(grid_mesh):
     img, gt = two_disks(256, 256, noise=8.0)
     u = jnp.asarray(img, F64)
     p = CVParams(init="circle")
-    from chan_vese_tpu.models.pyramid import segment_pyramid_sharded
+    from chan_vese.models.pyramid import segment_pyramid_sharded
 
     res = segment_pyramid_sharded(u, p, grid_mesh, min_dim=32, comm_k=4)
     assert iou(np.asarray(res.mask), gt) >= 0.98
 
 
 def test_pyramid_sharded_cli_flag(tmp_path):
-    from chan_vese_tpu.cli import main
-    from chan_vese_tpu.utils import image_io
+    from chan_vese.cli import main
+    from chan_vese.utils import image_io
 
     if jax.device_count() < 8:
         pytest.skip("needs 8 (fake) devices")
@@ -214,7 +214,7 @@ def test_pyramid_sharded_cli_flag(tmp_path):
 
 
 def test_pyramid_multiphase_matches_direct_labels():
-    from chan_vese_tpu.models import multiphase as mp
+    from chan_vese.models import multiphase as mp
     from test_multiphase import label_accuracy
 
     img, gt = four_regions(128, 128, noise=4.0)
@@ -236,8 +236,8 @@ def test_pyramid_multiphase_saves_work_circles_init():
     """With a localized (circles) init the direct solve's iterations
     scale with contour travel distance; the pyramid must cut the
     fine-equivalent total work - the reason the feature exists."""
-    from chan_vese_tpu.models import multiphase as mp
-    from chan_vese_tpu.models.multiphase import init_multiphase
+    from chan_vese.models import multiphase as mp
+    from chan_vese.models.multiphase import init_multiphase
 
     img, _ = four_regions(128, 128, noise=4.0)
     u = jnp.asarray(img, F64)
@@ -252,7 +252,7 @@ def test_pyramid_multiphase_saves_work_circles_init():
 
 
 def test_pyramid_multiphase_phis0_seeds_coarsest_level():
-    from chan_vese_tpu.models import multiphase as mp
+    from chan_vese.models import multiphase as mp
 
     img, _ = four_regions(128, 128, noise=4.0)
     u = jnp.asarray(img, F64)
@@ -265,8 +265,8 @@ def test_pyramid_multiphase_phis0_seeds_coarsest_level():
 
 
 def test_pyramid_multiphase_cli_flag(tmp_path):
-    from chan_vese_tpu.cli import main
-    from chan_vese_tpu.utils import image_io
+    from chan_vese.cli import main
+    from chan_vese.utils import image_io
     from test_multiphase import label_accuracy
 
     img, gt = four_regions(128, 128, noise=4.0)
@@ -282,17 +282,15 @@ def test_pyramid_multiphase_cli_flag(tmp_path):
     assert label_accuracy(lab, gt) >= 0.97
 
 
-@pytest.mark.tpu
-def test_pyramid_tpu_compiled_levels():
-    """On TPU every pyramid level is one compiled device program (the
-    banded/fused/resident auto of models/banded.py at that level's
-    size); the warm-started finest level must land in the direct
-    solve's basin and save iterations, with compiled (not interpreted)
-    kernels doing the work."""
-    from chan_vese_tpu.models.scalar import segment as segment_direct
+@pytest.mark.gpu
+def test_pyramid_gpu_compiled_levels(gpu):
+    """On the GPU every pyramid level is one compiled device program;
+    the warm-started finest level must land in the direct solve's basin
+    and save iterations."""
+    from chan_vese.models.scalar import segment as segment_direct
 
     img, gt = two_disks(512, 512, noise=6.0, dtype=np.float32)
-    u = jnp.asarray(img, jnp.float32)
+    u = jax.device_put(img.astype(np.float32), gpu)
     p = CVParams(init="circle")
     direct = segment_direct(u, p)
     pyr = segment_pyramid(u, p)   # default min_dim=128 -> 2 levels
@@ -304,8 +302,8 @@ def test_pyramid_tpu_compiled_levels():
 def test_pyramid_cli_flag(tmp_path):
     """--pyramid -1 runs the coarse-to-fine path end-to-end; the flag is
     dropped (with a warning) in fixed mode."""
-    from chan_vese_tpu.cli import main
-    from chan_vese_tpu.utils import image_io
+    from chan_vese.cli import main
+    from chan_vese.utils import image_io
 
     img, gt = two_disks(256, 256, noise=5.0)
     src = tmp_path / "in.npy"
@@ -336,15 +334,15 @@ def _disk512(seed=0):
 
 
 def test_pyramid_morph_matches_direct_and_saves_work():
-    from chan_vese_tpu.models.morph import segment_morph
-    from chan_vese_tpu.models.pyramid import segment_pyramid_morph
+    from chan_vese.models.morph import segment_morph
+    from chan_vese.models.pyramid import segment_pyramid_morph
 
     u, gt = _disk512()
     p = CVParams(max_iter=500, tol=1e-5, patience=4, min_iter=4,
                  init="circle")
     res = segment_pyramid_morph(u, p, levels=2)
     assert iou(np.asarray(res.mask), gt) > 0.99
-    direct = segment_morph(u, p, use_pallas=False)
+    direct = segment_morph(u, p)
     assert iou(np.asarray(direct.mask), gt) > 0.99
     # the finest level refines locally: it must need strictly fewer
     # iterations than the direct full-resolution run (measured 5 vs 36)
@@ -353,7 +351,7 @@ def test_pyramid_morph_matches_direct_and_saves_work():
 
 
 def test_pyramid_morph_ls0_seeds_coarsest():
-    from chan_vese_tpu.models.pyramid import segment_pyramid_morph
+    from chan_vese.models.pyramid import segment_pyramid_morph
 
     u, gt = _disk512()
     # seed with the ground truth: every level starts converged-ish, so
@@ -366,7 +364,7 @@ def test_pyramid_morph_ls0_seeds_coarsest():
 
 
 def test_pyramid_gac_converges_from_small_seed():
-    from chan_vese_tpu.models.pyramid import segment_pyramid_gac
+    from chan_vese.models.pyramid import segment_pyramid_gac
 
     u, gt = _disk512()
     p = CVParams(max_iter=500, tol=1e-5, patience=4, min_iter=4,
@@ -380,8 +378,8 @@ def test_pyramid_gac_converges_from_small_seed():
 
 
 def test_pyramid_morph_cli_flag(tmp_path):
-    from chan_vese_tpu.cli import main
-    from chan_vese_tpu.utils import image_io
+    from chan_vese.cli import main
+    from chan_vese.utils import image_io
 
     u, gt = _disk512()
     src = tmp_path / "in.npy"
@@ -406,8 +404,8 @@ def test_pyramid_morph_cli_flag(tmp_path):
 def test_pyramid_morph_mesh_drops_pyramid(tmp_path):
     """--morph --pyramid --mesh: pyramid dropped with a warning, the
     sharded path still runs (composition rule)."""
-    from chan_vese_tpu.cli import main
-    from chan_vese_tpu.utils import image_io
+    from chan_vese.cli import main
+    from chan_vese.utils import image_io
 
     u, gt = _disk512()
     src = tmp_path / "in.npy"

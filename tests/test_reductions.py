@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu.ops import reductions as rd
-from chan_vese_tpu.params import CVParams
+from chan_vese.ops import reductions as rd
+from chan_vese.params import CVParams
 
 F64 = jnp.float64
 

@@ -4,64 +4,66 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu.params import CVParams
+from chan_vese.params import CVParams
 from fixtures import iou, two_disks
 
 F64 = jnp.float64
 F32 = jnp.float32
 
 
-def test_fused_gray_lambdas_respected():
-    """Finding 1: segment_fused must honor scalar lambda overrides on
-    grayscale inputs (both kernel path and fallback)."""
-    from chan_vese_tpu import segment, segment_fused
+def test_gray_lambdas_respected():
+    """Finding 1: scalar lambda overrides on grayscale inputs are honored
+    (equal to folding them into the params) and per-channel tuples on a
+    grayscale image are rejected."""
+    from chan_vese import chan_vese, segment
 
     img, _ = two_disks(64, 128, noise=6.0)
     u = jnp.asarray(img, F32)
     p = CVParams(init="circle")
-    a = segment_fused(u, p, lambda1=2.0, lambda2=0.5, interpret=True)
-    b = segment_fused(u, p, interpret=True)
+    a = segment(u, p, lambda1=2.0, lambda2=0.5)
+    b = segment(u, p)
     assert int(a.iters) != int(b.iters) or \
         not np.array_equal(np.asarray(a.phi), np.asarray(b.phi))
-    # matches the jnp driver given the same lambdas
-    c = segment(u, p, lambda1=2.0, lambda2=0.5)
-    assert iou(np.asarray(a.mask), np.asarray(c.mask)) >= 0.99
+    c = segment(u, p.replace(lambda1=2.0, lambda2=0.5))
+    np.testing.assert_allclose(np.asarray(a.phi), np.asarray(c.phi),
+                               rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError):
-        segment_fused(u, p, lambda1=(1.0, 2.0, 3.0), interpret=True)
+        chan_vese(img, lambda1=(1.0, 2.0, 3.0))
 
 
-def test_fused_reinit_respected():
-    """Finding 2: the fused drivers must apply reinit_every."""
-    from chan_vese_tpu import segment_fused_fixed
+def test_reinit_respected():
+    """Finding 2: the fixed-iteration driver applies reinit_every."""
+    from chan_vese import segment_fixed
 
     img, gt = two_disks(64, 128, noise=6.0)
     u = jnp.asarray(img, F32)
     p = CVParams(init="circle", reinit_every=5, reinit_steps=20)
-    phi_r, mask_r = segment_fused_fixed(u, p, iters=30, interpret=True)
-    phi_n, _ = segment_fused_fixed(u, p.replace(reinit_every=0), iters=30,
-                                   interpret=True)
+    tr_r = segment_fixed(u, p, iters=30)
+    tr_n = segment_fixed(u, p.replace(reinit_every=0), iters=30)
+    phi_r = tr_r.phi
     # reinit bounds |phi| near the contour; without it phi drifts large
-    assert not np.allclose(np.asarray(phi_r), np.asarray(phi_n))
-    from chan_vese_tpu.ops.numerics import grad_central
+    assert not np.allclose(np.asarray(phi_r), np.asarray(tr_n.phi))
+    from chan_vese.ops.numerics import grad_central
     gx, gy = grad_central(phi_r)
     band = np.abs(np.asarray(phi_r)) < 3.0
     g = np.asarray(jnp.sqrt(gx ** 2 + gy ** 2))
     assert 0.4 < np.median(g[band]) < 2.0
-    assert iou(np.asarray(mask_r), gt) >= 0.98
+    assert iou(np.asarray(tr_r.mask), gt) >= 0.98
 
 
-def test_fused_reinit_matches_jnp_path():
-    """With reinit on, the fused driver's trajectory (incl. the post-reinit
-    mean refresh) must match the jnp scalar driver's masks."""
-    from chan_vese_tpu import segment_fixed, segment_fused_fixed
+def test_batched_reinit_matches_single_frame():
+    """With reinit on, every frame of the stack driver follows the
+    single-image trajectory (the cadence counter is shared)."""
+    from chan_vese import segment_fixed, segment_stack_fixed
 
     img, _ = two_disks(64, 128, noise=6.0)
     u = jnp.asarray(img, F32)
     p = CVParams(init="circle", reinit_every=4, reinit_steps=10)
-    phi_f, mask_f = segment_fused_fixed(u, p, iters=12, interpret=True)
-    tr = segment_fixed(u, p, iters=12)
-    diff = (np.asarray(mask_f) != np.asarray(tr.mask)).sum()
-    assert diff <= 5, diff
+    phis, _ = segment_stack_fixed(jnp.stack([u, u[::-1]]), p, iters=12)
+    for k, frame in enumerate((u, u[::-1])):
+        tr = segment_fixed(frame, p, iters=12)
+        np.testing.assert_allclose(np.asarray(phis[k]), np.asarray(tr.phi),
+                                   rtol=1e-5, atol=1e-4)
 
 
 def test_sharded_gray_lambdas_respected():
@@ -71,8 +73,8 @@ def test_sharded_gray_lambdas_respected():
 
     if jax.device_count() < 8:
         pytest.skip("needs 8 fake devices")
-    from chan_vese_tpu.parallel.mesh import make_grid_mesh
-    from chan_vese_tpu.parallel.sharded import segment_sharded
+    from chan_vese.parallel.mesh import make_grid_mesh
+    from chan_vese.parallel.sharded import segment_sharded
 
     mesh = make_grid_mesh(2, 4)
     img, _ = two_disks(64, 64, noise=6.0)
@@ -94,8 +96,8 @@ def test_sharded_reinit_steps_validated():
 
     if jax.device_count() < 8:
         pytest.skip("needs 8 fake devices")
-    from chan_vese_tpu.parallel.mesh import make_grid_mesh
-    from chan_vese_tpu.parallel.sharded import segment_sharded
+    from chan_vese.parallel.mesh import make_grid_mesh
+    from chan_vese.parallel.sharded import segment_sharded
 
     mesh = make_grid_mesh(2, 4)  # shards (32, 16)
     u = jnp.zeros((64, 64), F32)
@@ -103,20 +105,25 @@ def test_sharded_reinit_steps_validated():
         segment_sharded(u, CVParams(reinit_every=5, reinit_steps=20), mesh)
 
 
-def test_fused_crop_geometry_validated():
-    """Review 2 finding 3: crop/edges tied to the 4-deep-halo geometry."""
-    from chan_vese_tpu.ops import pallas_sweep
+def test_sharded_rejects_unknown_halo():
+    """Only the collective halo schedules exist; anything else raises
+    before tracing."""
+    from chan_vese.parallel.mesh import make_grid_mesh
+    from chan_vese.parallel.sharded import (segment_multiphase_sharded,
+                                            segment_sharded,
+                                            segment_sharded_fixed_trace)
 
-    phi = jnp.zeros((40, 128), F32)
-    u = jnp.zeros((40, 128), F32)
-    with pytest.raises(ValueError, match="halo geometry"):
-        pallas_sweep.fused_iteration(phi, u, 1.0, 0.0, CVParams(),
-                                     crop=(2, 34, 2, 34), interpret=True)
+    mesh = make_grid_mesh(2, 2)
+    u = jnp.zeros((64, 64), F32)
+    for fn in (segment_sharded, segment_sharded_fixed_trace,
+               segment_multiphase_sharded):
+        with pytest.raises(ValueError, match="unknown halo"):
+            fn(u, CVParams(), mesh, halo="rdma")
 
 
 def test_checkpoint_ignores_torn_tmp(tmp_path):
     """Finding 4: a leftover torn temp file must never be 'latest'."""
-    from chan_vese_tpu.utils import checkpoint
+    from chan_vese.utils import checkpoint
 
     checkpoint.save(tmp_path, 10, np.zeros((4, 4)))
     # simulate a torn write under both old and new temp conventions
@@ -129,8 +136,8 @@ def test_checkpoint_ignores_torn_tmp(tmp_path):
 
 def test_checkpoint_chunking_preserves_reinit_cadence(tmp_path):
     """Finding 5: chunked runs keep the global reinit schedule."""
-    from chan_vese_tpu import segment_fixed
-    from chan_vese_tpu.utils import checkpoint
+    from chan_vese import segment_fixed
+    from chan_vese.utils import checkpoint
 
     img, _ = two_disks(32, 32, noise=4.0)
     u = jnp.asarray(img, F64)
@@ -149,8 +156,8 @@ def test_cli_multiphase_mesh_routes_sharded(tmp_path):
 
     if jax.device_count() < 8:
         pytest.skip("needs 8 fake devices")
-    from chan_vese_tpu.cli import main
-    from chan_vese_tpu.utils import image_io
+    from chan_vese.cli import main
+    from chan_vese.utils import image_io
     from fixtures import four_regions
 
     img, _ = four_regions(64, 64, noise=4.0)
@@ -166,8 +173,8 @@ def test_cli_multiphase_mesh_routes_sharded(tmp_path):
 
 def test_cli_gif_respects_iter_count(tmp_path):
     """Finding 7: the GIF replay must not overshoot --iters."""
-    from chan_vese_tpu.cli import main
-    from chan_vese_tpu.utils import image_io
+    from chan_vese.cli import main
+    from chan_vese.utils import image_io
 
     img, _ = two_disks(48, 48, noise=5.0)
     src = tmp_path / "in.png"
@@ -187,52 +194,53 @@ def test_cli_gif_respects_iter_count(tmp_path):
 # Fifth-review findings
 # ---------------------------------------------------------------------------
 
-def test_fused_honors_non_redblack_order():
-    """Finding 5.1: segment_fused with order != 'redblack' must run that
-    ordering (jnp fallback), not silently substitute the red-black kernel."""
-    from chan_vese_tpu import segment, segment_fused
-    from chan_vese_tpu.models.fused import segment_fused_fixed
-    from chan_vese_tpu.models.scalar import segment_fixed
+def test_drivers_honor_non_redblack_order():
+    """Finding 5.1: order != 'redblack' runs that ordering in the
+    tolerance and fixed drivers alike (same trajectory at the same
+    iteration count)."""
+    from chan_vese import segment
+    from chan_vese.models.scalar import segment_fixed
 
     img, _ = two_disks(64, 128, noise=6.0)
     u = jnp.asarray(img, F32)
     for order in ("jacobi", "wavefront"):
-        p = CVParams(init="circle", order=order, max_iter=20)
-        a = segment_fused(u, p, interpret=True)
-        b = segment(u, p)
-        assert np.array_equal(np.asarray(a.phi), np.asarray(b.phi)), order
-        phi_f, _ = segment_fused_fixed(u, p, iters=8, interpret=True)
+        p = CVParams(init="circle", order=order, max_iter=8, tol=-1.0)
+        a = segment(u, p)
         tr = segment_fixed(u, p, iters=8)
-        assert np.array_equal(np.asarray(phi_f), np.asarray(tr.phi)), order
+        assert int(a.iters) == 8
+        np.testing.assert_allclose(np.asarray(a.phi), np.asarray(tr.phi),
+                                   rtol=1e-6, atol=1e-5, err_msg=order)
+        rb = segment_fixed(u, p.replace(order="redblack"), iters=8)
+        assert not np.allclose(np.asarray(tr.phi), np.asarray(rb.phi))
 
 
-def test_batched_fused_honors_non_redblack_order():
-    from chan_vese_tpu.models.batched import (segment_stack_fixed,
-                                              segment_stack_fused_fixed)
+def test_batched_honors_non_redblack_order():
+    from chan_vese.models.batched import segment_stack_fixed
+    from chan_vese.models.scalar import segment_fixed
 
     img, _ = two_disks(64, 128, noise=6.0)
     u = jnp.asarray(img, F32)
     stack = jnp.stack([u, u[::-1]])
     p = CVParams(init="circle", order="jacobi")
-    phis_a, _ = segment_stack_fused_fixed(stack, p, iters=6)
-    phis_b, _ = segment_stack_fixed(stack, p, iters=6)
-    assert np.array_equal(np.asarray(phis_a), np.asarray(phis_b))
+    phis, _ = segment_stack_fixed(stack, p, iters=6)
+    for k in range(2):
+        tr = segment_fixed(stack[k], p, iters=6)
+        np.testing.assert_allclose(np.asarray(phis[k]), np.asarray(tr.phi),
+                                   rtol=1e-6, atol=1e-5)
 
 
 def test_unknown_conv_norm_raises_everywhere():
-    """Finding 5.3: every driver rejects an unknown conv_norm (the fused and
-    sharded paths used to silently compute mean_abs)."""
-    from chan_vese_tpu import segment, segment_fused
-    from chan_vese_tpu.parallel.mesh import make_grid_mesh
-    from chan_vese_tpu.parallel.sharded import segment_sharded
+    """Finding 5.3: every driver rejects an unknown conv_norm (the sharded
+    paths used to silently compute mean_abs)."""
+    from chan_vese import segment
+    from chan_vese.parallel.mesh import make_grid_mesh
+    from chan_vese.parallel.sharded import segment_sharded
 
     img, _ = two_disks(64, 128, noise=6.0)
     u = jnp.asarray(img, F32)
     p = CVParams(conv_norm="bogus")
     with pytest.raises(ValueError, match="conv_norm"):
         segment(u, p)
-    with pytest.raises(ValueError, match="conv_norm"):
-        segment_fused(u, p, interpret=True)
     with pytest.raises(ValueError, match="conv_norm"):
         segment_sharded(u, p, mesh=make_grid_mesh(2, 2))
     rgb = jnp.stack([u, u, u], axis=-1)
@@ -243,7 +251,7 @@ def test_unknown_conv_norm_raises_everywhere():
 def test_channel_lambdas_broadcasts_scalars():
     """Finding 5.2: scalar lambda overrides broadcast per-channel on vector
     images (used to raise TypeError)."""
-    from chan_vese_tpu.models.vector import segment_vector_fixed
+    from chan_vese.models.vector import segment_vector_fixed
 
     p = CVParams()
     assert p.channel_lambdas(3, 2.0, None) == ((2.0,) * 3, (1.0,) * 3)
@@ -263,9 +271,9 @@ def test_channel_lambdas_broadcasts_scalars():
 def test_curvature_matches_coefficient_form():
     """Finding 5.5 refactor guard: curvature() (now via face_coeffs_all)
     still equals the explicit forward/backward coefficient expansion."""
-    from chan_vese_tpu.ops.numerics import (curvature, face_coeffs,
-                                            face_coeffs_backward, shift_down,
-                                            shift_left, shift_right, shift_up)
+    from chan_vese.ops.numerics import (curvature, face_coeffs,
+                                        face_coeffs_backward, shift_down,
+                                        shift_left, shift_right, shift_up)
 
     rng = np.random.default_rng(7)
     phi = jnp.asarray(rng.standard_normal((17, 23)), F64)

@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu import CVParams, segment, segment_fixed
+from chan_vese import CVParams, segment, segment_fixed
 from fixtures import iou, two_disks
 
 F64 = jnp.float64
@@ -67,7 +67,7 @@ def test_orderings_agree_on_converged_mask():
     hoped-for 1e-5 trace parity of red-black; the exact-parity mode is the
     wavefront kernel, see test_c_baseline.py) but must agree on the
     converged segmentation and final energy."""
-    from chan_vese_tpu.ops.reductions import energy, region_means
+    from chan_vese.ops.reductions import energy, region_means
 
     img, gt = two_disks(64, 64, noise=5.0)
     u = jnp.asarray(img, F64)
@@ -125,7 +125,7 @@ def test_normalization_scaling_matters():
 
     s = 255.0
     p_scaled = p.replace(mu=p.mu / s ** 2, eps=p.eps / s, eta2=p.eta2 / s ** 2)
-    from chan_vese_tpu.utils.init_phi import init_phi
+    from chan_vese.utils.init_phi import init_phi
     phi0 = init_phi((64, 64), "circle", F64)
     ref = segment_fixed(jnp.asarray(img, F64), p, iters=60, phi0=phi0)
     scaled = segment_fixed(jnp.asarray(img01, F64), p_scaled, iters=60,
@@ -140,7 +140,7 @@ def test_normalization_scaling_matters():
 
 
 def test_reinit_keeps_gradient_bounded():
-    from chan_vese_tpu.ops.numerics import grad_central
+    from chan_vese.ops.numerics import grad_central
 
     img, gt = two_disks(64, 64, noise=5.0)
     p = CVParams(init="circle", reinit_every=10, reinit_steps=30)
@@ -154,7 +154,7 @@ def test_reinit_keeps_gradient_bounded():
 
 
 def test_checkerboard_init_matches_baseline_formula():
-    from chan_vese_tpu.utils.init_phi import checkerboard
+    from chan_vese.utils.init_phi import checkerboard
 
     phi = np.asarray(checkerboard((16, 16), jnp.float64))
     i, j = np.mgrid[0:16, 0:16]

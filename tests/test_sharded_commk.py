@@ -1,18 +1,17 @@
 """Communication-avoiding sharded chunking (segment_sharded(comm_k=k)):
-one 4k-deep halo exchange per k frozen-means iterations."""
+one 4k-deep halo exchange per k frozen-means iterations, checked against
+the unsharded f64 numpy references of ops/sweep_np.py."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu.ops.reductions import (data_term, means_from_sums,
-                                          region_means)
-from chan_vese_tpu.ops.sweep import redblack_step
-from chan_vese_tpu.params import CVParams
-from chan_vese_tpu.parallel import mesh as meshmod
-from chan_vese_tpu.parallel.sharded import segment_sharded
-from chan_vese_tpu.utils.init_phi import init_phi
+from chan_vese.ops import sweep_np
+from chan_vese.params import CVParams
+from chan_vese.parallel import mesh as meshmod
+from chan_vese.parallel.sharded import segment_sharded
+from chan_vese.utils.init_phi import init_phi
 from fixtures import iou, two_disks
 
 F32 = jnp.float32
@@ -25,46 +24,20 @@ def grid_mesh():
     return meshmod.make_grid_mesh(2, 4)
 
 
-def _frozen_means_reference(u0, phi, p, iters, k):
-    """The banded/comm-avoiding trajectory class, pure jnp, unsharded."""
-    c1, c2 = region_means(u0, phi, p.eps)
-    sum_u = jnp.sum(u0)
-    n_pix = float(u0.size)
-    done = 0
-    while done < iters:
-        size = min(k, iters - done)
-        f = data_term(u0, c1, c2, p.nu, p.lambda1, p.lambda2)
-        for _ in range(size):
-            phi = redblack_step(phi, f, p)
-        from chan_vese_tpu.ops.numerics import heaviside
-        h = heaviside(phi, p.eps)
-        c1, c2 = means_from_sums(jnp.sum(u0 * h), jnp.sum(h), sum_u, n_pix)
-        done += size
-    return phi
+def _phi0(shape, p):
+    return np.asarray(init_phi(shape, p.init, jnp.float64))
 
 
-def _frozen_means_reference_vec(u0, phi, p, iters, k, l1, l2):
-    """Vector-valued frozen-means trajectory class, pure jnp, unsharded."""
-    from chan_vese_tpu.ops.numerics import heaviside
+def _rgb(img, seed):
+    rng = np.random.default_rng(seed)
+    return np.stack([img + rng.normal(0, 2.0, img.shape)
+                     for _ in range(3)], axis=-1)
 
-    c1, c2 = region_means(u0, phi, p.eps)  # (C,)
-    sum_u = jnp.sum(u0, axis=(0, 1))
-    n_pix = float(u0.shape[0] * u0.shape[1])
-    l1 = jnp.asarray(l1, u0.dtype)
-    l2 = jnp.asarray(l2, u0.dtype)
-    done = 0
-    while done < iters:
-        size = min(k, iters - done)
-        f = (-p.nu - jnp.mean(l1 * (u0 - c1) ** 2, axis=-1)
-             + jnp.mean(l2 * (u0 - c2) ** 2, axis=-1))
-        for _ in range(size):
-            phi = redblack_step(phi, f, p)
-        h = heaviside(phi, p.eps)
-        c1, c2 = means_from_sums(
-            jnp.sum(u0 * h[..., None], axis=(0, 1)), jnp.sum(h),
-            sum_u, n_pix)
-        done += size
-    return phi
+
+def _check(res, want, tol=1e-9):
+    np.testing.assert_allclose(np.asarray(res.phi), want, rtol=tol,
+                               atol=tol)
+    np.testing.assert_array_equal(np.asarray(res.mask), want >= 0)
 
 
 @pytest.mark.parametrize("k,iters", [(2, 8), (3, 10)])
@@ -74,151 +47,122 @@ def test_commk_matches_frozen_means_reference(grid_mesh, k, iters):
     p = CVParams()
     res = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=iters,
                           comm_k=k)
-    want = _frozen_means_reference(u0, init_phi((48, 96), p.init,
-                                                u0.dtype), p, iters, k)
-    np.testing.assert_allclose(np.asarray(res.phi), np.asarray(want),
-                               rtol=1e-9, atol=1e-9)
+    want = sweep_np.segment_chunked(img, p, iters, _phi0((48, 96), p), k)
+    _check(res, want)
     assert int(res.iters) == iters
 
 
 @pytest.mark.parametrize("k,iters", [(2, 8), (3, 10)])
-def test_commk_pallas_matches_frozen_means_reference(grid_mesh, k, iters):
-    """The banded Pallas kernel per shard (VERDICT r2 item 1): same
-    frozen-means trajectory class as the exact-atan jnp reference.
-    Tolerance is set by the in-kernel Cephes atan (~1e-7 relative) that
-    feeds the means refresh, same as tests/test_banded.py."""
-    img, _ = two_disks(48, 96, noise=6.0)
-    u0 = jnp.asarray(img)  # f64
+def test_commk_overlap_matches_frozen_means_numpy(grid_mesh, k, iters):
+    """overlap x comm_k (interior chunk from local data while the deep
+    exchange runs, then rim strips) is the same frozen-means class."""
+    img, _ = two_disks(64, 128, noise=6.0)
     p = CVParams()
-    res = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=iters,
-                          comm_k=k, use_pallas=True, interpret=True)
-    want = _frozen_means_reference(u0, init_phi((48, 96), p.init,
-                                                u0.dtype), p, iters, k)
-    np.testing.assert_allclose(np.asarray(res.phi), np.asarray(want),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(res.mask),
-                                  np.asarray(want) >= 0)
-    assert int(res.iters) == iters
+    res = segment_sharded(jnp.asarray(img), p, grid_mesh, fixed=True,
+                          max_iter=iters, comm_k=k, halo="overlap")
+    _check(res, sweep_np.segment_chunked(img, p, iters,
+                                         _phi0((64, 128), p), k))
 
 
 @pytest.mark.parametrize("k,iters", [(2, 8), (4, 10)])
-def test_commk_pallas_sharded_equals_unsharded_banded(grid_mesh, k, iters):
-    """Sharding equivalence at 1e-9 f64: the per-shard banded kernel on
-    the 2x4 mesh vs the SAME kernel unsharded (models/banded.py driver,
-    identical Cephes atan + frozen-means schedule + auto-unroll policy).
-    Isolates halo/resync/parity/crop correctness from kernel-vs-jnp
-    transcendental differences. iters=10 with k=4 also covers the
-    remainder chunk (size 2, unroll drops to 1)."""
-    from chan_vese_tpu.models.banded import segment_banded_fixed
-
+def test_commk_wide_image_matches_numpy(grid_mesh, k, iters):
+    """48x256 over the 2x4 mesh (24x64 shards); iters=10 with k=4 covers
+    the remainder chunk."""
     img, _ = two_disks(48, 256, noise=6.0)
-    u0 = jnp.asarray(img)  # f64
     p = CVParams()
-    phi0 = init_phi((48, 256), p.init, u0.dtype)
-    res = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=iters,
-                          comm_k=k, phi0=phi0, use_pallas=True,
-                          interpret=True)
-    want_phi, want_mask = segment_banded_fixed(u0, p, iters=iters, k=k,
-                                               phi0=phi0, interpret=True)
-    np.testing.assert_allclose(np.asarray(res.phi), np.asarray(want_phi),
-                               rtol=1e-9, atol=1e-9)
-    np.testing.assert_array_equal(np.asarray(res.mask),
-                                  np.asarray(want_mask))
+    res = segment_sharded(jnp.asarray(img), p, grid_mesh, fixed=True,
+                          max_iter=iters, comm_k=k)
+    _check(res, sweep_np.segment_chunked(img, p, iters,
+                                         _phi0((48, 256), p), k))
 
 
-def test_commk_pallas_matches_jnp_commk(grid_mesh):
-    """use_pallas routes the same trajectory class as the jnp chunks:
-    masks equal, phi within the Cephes-atan envelope."""
+def test_per_iteration_sharded_matches_numpy(grid_mesh):
+    """comm_k = 1 is the per-iteration path: means refreshed after every
+    sweep, i.e. the numpy segment_fixed trajectory."""
     img, _ = two_disks(48, 96, noise=6.0)
-    u0 = jnp.asarray(img)
     p = CVParams()
-    a = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=12,
-                        comm_k=4, use_pallas=True, interpret=True)
-    b = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=12,
-                        comm_k=4, use_pallas=False)
-    np.testing.assert_array_equal(np.asarray(a.mask), np.asarray(b.mask))
-    np.testing.assert_allclose(np.asarray(a.phi), np.asarray(b.phi),
-                               rtol=1e-5, atol=1e-5)
+    res = segment_sharded(jnp.asarray(img), p, grid_mesh, fixed=True,
+                          max_iter=12)
+    want, _, _, _ = sweep_np.segment_fixed(img, p, 12, _phi0((48, 96), p))
+    _check(res, want)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_commk_vec_matches_reference(grid_mesh, use_pallas):
-    """Vector-valued comm_k chunking (jnp and banded-mc kernel paths)."""
-    rng = np.random.default_rng(3)
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_commk_vec_matches_reference(grid_mesh, per_channel):
+    """Vector-valued comm_k chunking, broadcast and per-channel lambdas."""
     img, _ = two_disks(48, 96, noise=6.0)
-    u0 = jnp.asarray(np.stack([img + rng.normal(0, 2.0, img.shape)
-                               for _ in range(3)], axis=-1))
+    u0 = _rgb(img, 3)
+    lam1, lam2 = ((1.0, 1.2, 0.8), (1.0, 0.9, 1.1)) if per_channel \
+        else (None, None)
+    p = CVParams()
+    res = segment_sharded(jnp.asarray(u0), p, grid_mesh, fixed=True,
+                          max_iter=8, comm_k=2, lambda1=lam1, lambda2=lam2)
+    _check(res, sweep_np.segment_chunked(u0, p, 8, _phi0((48, 96), p), 2,
+                                         lam1, lam2))
+
+
+def test_commk_vec_wide_matches_numpy(grid_mesh):
+    img, _ = two_disks(48, 256, noise=6.0)
+    u0 = _rgb(img, 5)
     lam1, lam2 = (1.0, 1.2, 0.8), (1.0, 0.9, 1.1)
     p = CVParams()
-    res = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=8,
-                          comm_k=2, lambda1=lam1, lambda2=lam2,
-                          use_pallas=use_pallas, interpret=use_pallas)
-    want = _frozen_means_reference_vec(
-        u0, init_phi((48, 96), p.init, u0.dtype), p, 8, 2, lam1, lam2)
-    tol = dict(rtol=1e-5, atol=1e-5) if use_pallas \
-        else dict(rtol=1e-9, atol=1e-9)
-    np.testing.assert_allclose(np.asarray(res.phi), np.asarray(want),
-                               **tol)
-    np.testing.assert_array_equal(np.asarray(res.mask),
-                                  np.asarray(want) >= 0)
+    res = segment_sharded(jnp.asarray(u0), p, grid_mesh, fixed=True,
+                          max_iter=8, comm_k=2, lambda1=lam1, lambda2=lam2)
+    _check(res, sweep_np.segment_chunked(u0, p, 8, _phi0((48, 256), p), 2,
+                                         lam1, lam2))
 
 
-def test_commk_pallas_vec_sharded_equals_unsharded_banded(grid_mesh):
-    """Vector twin of the 1e-9 sharding-equivalence test (banded mc
-    kernel per shard vs the unsharded mc banded driver)."""
-    from chan_vese_tpu.models.banded import segment_banded_fixed
-
-    rng = np.random.default_rng(5)
+def test_vec_per_iteration_matches_numpy(grid_mesh):
+    """comm_k == 1 vector sharding: per-iteration per-channel means."""
     img, _ = two_disks(48, 256, noise=6.0)
-    u0 = jnp.asarray(np.stack([img + rng.normal(0, 2.0, img.shape)
-                               for _ in range(3)], axis=-1))
-    lam1, lam2 = (1.0, 1.2, 0.8), (1.0, 0.9, 1.1)
+    u0 = _rgb(img, 7)
     p = CVParams()
-    phi0 = init_phi((48, 256), p.init, u0.dtype)
-    res = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=8,
-                          comm_k=2, phi0=phi0, lambda1=lam1, lambda2=lam2,
-                          use_pallas=True, interpret=True)
-    want_phi, want_mask = segment_banded_fixed(
-        u0, p, iters=8, k=2, phi0=phi0, lambda1=lam1, lambda2=lam2,
-        interpret=True)
-    np.testing.assert_allclose(np.asarray(res.phi), np.asarray(want_phi),
-                               rtol=1e-9, atol=1e-9)
-    np.testing.assert_array_equal(np.asarray(res.mask),
-                                  np.asarray(want_mask))
+    res = segment_sharded(jnp.asarray(u0), p, grid_mesh, fixed=True,
+                          max_iter=6)
+    want, _, _, _ = sweep_np.segment_fixed(u0, p, 6, _phi0((48, 256), p))
+    _check(res, want)
 
 
-def test_vec_per_iteration_pallas_equals_unsharded(grid_mesh):
-    """comm_k == 1 vector sharding routes through the banded mc kernel
-    (a k=1 chunk is one standard iteration); must equal the unsharded
-    k=1 banded mc driver at 1e-9 f64, and stay in the same trajectory
-    class as the jnp vec path (masks equal)."""
-    from chan_vese_tpu.models.banded import segment_banded_fixed
-
-    rng = np.random.default_rng(7)
-    img, _ = two_disks(48, 256, noise=6.0)
-    u0 = jnp.asarray(np.stack([img + rng.normal(0, 2.0, img.shape)
-                               for _ in range(3)], axis=-1))
+@pytest.mark.parametrize("channels", [1, 4])
+def test_commk_vec_channel_counts(grid_mesh, channels):
+    rng = np.random.default_rng(channels)
+    img, _ = two_disks(48, 96, noise=6.0)
+    u0 = np.stack([img + rng.normal(0, 3.0, img.shape)
+                   for _ in range(channels)], axis=-1)
     p = CVParams()
-    phi0 = init_phi((48, 256), p.init, u0.dtype)
-    res = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=6,
-                          phi0=phi0, use_pallas=True, interpret=True)
-    want_phi, want_mask = segment_banded_fixed(u0, p, iters=6, k=1,
-                                               phi0=phi0, interpret=True)
-    np.testing.assert_allclose(np.asarray(res.phi), np.asarray(want_phi),
-                               rtol=1e-9, atol=1e-9)
-    jnp_res = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=6,
-                              phi0=phi0, use_pallas=False)
-    np.testing.assert_array_equal(np.asarray(res.mask),
-                                  np.asarray(jnp_res.mask))
+    res = segment_sharded(jnp.asarray(u0), p, grid_mesh, fixed=True,
+                          max_iter=7, comm_k=3)
+    _check(res, sweep_np.segment_chunked(u0, p, 7, _phi0((48, 96), p), 3))
 
 
-def test_commk_pallas_geometry_validation(grid_mesh):
-    """Shards off the banded envelope must raise for explicit
-    use_pallas=True (30-row shards break the 8-row alignment)."""
-    u0 = jnp.zeros((60, 96), jnp.float32)
-    with pytest.raises(ValueError, match="banded pallas"):
-        segment_sharded(u0, CVParams(), grid_mesh, comm_k=2,
-                        use_pallas=True, interpret=True)
+def test_commk_odd_shard_rows_match_numpy(grid_mesh):
+    """30-row, 24-col shards (no alignment to any tile size)."""
+    rng = np.random.default_rng(11)
+    img = rng.uniform(0, 255, (60, 96))
+    p = CVParams()
+    res = segment_sharded(jnp.asarray(img), p, grid_mesh, fixed=True,
+                          max_iter=6, comm_k=2)
+    _check(res, sweep_np.segment_chunked(img, p, 6, _phi0((60, 96), p), 2))
+
+
+def test_commk_remainder_chunk_matches_numpy(grid_mesh):
+    img, _ = two_disks(48, 96, noise=6.0)
+    p = CVParams(init="circle")
+    res = segment_sharded(jnp.asarray(img), p, grid_mesh, fixed=True,
+                          max_iter=7, comm_k=4)
+    assert int(res.iters) == 7
+    _check(res, sweep_np.segment_chunked(img, p, 7, _phi0((48, 96), p), 4))
+
+
+def test_commk_means_match_numpy(grid_mesh):
+    """The returned c1/c2 are the region means of the final phi."""
+    img, _ = two_disks(48, 96, noise=6.0)
+    p = CVParams()
+    res = segment_sharded(jnp.asarray(img), p, grid_mesh, fixed=True,
+                          max_iter=8, comm_k=4)
+    c1, c2 = sweep_np.region_means(img, np.asarray(res.phi), p.eps)
+    np.testing.assert_allclose([float(res.c1), float(res.c2)], [c1, c2],
+                               rtol=1e-10)
 
 
 def test_commk_tolerance_converges(grid_mesh):
@@ -228,17 +172,6 @@ def test_commk_tolerance_converges(grid_mesh):
     res = segment_sharded(u0, p, grid_mesh, comm_k=4)
     assert iou(np.asarray(res.mask), gt) > 0.98
     assert int(res.iters) < 200
-
-
-def test_commk_rdma_halo(grid_mesh):
-    """comm_k composes with the remote-DMA halo mechanism."""
-    img, _ = two_disks(48, 96, noise=6.0)
-    u0 = jnp.asarray(img, F32)
-    p = CVParams()
-    a = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=6, comm_k=3)
-    b = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=6, comm_k=3,
-                        halo="rdma", interpret=True)
-    np.testing.assert_array_equal(np.asarray(a.phi), np.asarray(b.phi))
 
 
 def test_commk_validation(grid_mesh):
@@ -256,8 +189,8 @@ def test_commk_validation(grid_mesh):
 
 
 def test_cli_commk(grid_mesh, tmp_path):
-    from chan_vese_tpu.cli import main
-    from chan_vese_tpu.utils import image_io
+    from chan_vese.cli import main
+    from chan_vese.utils import image_io
 
     img, gt = two_disks(48, 96, noise=6.0)
     pth = tmp_path / "in.png"
@@ -271,97 +204,35 @@ def test_cli_commk(grid_mesh, tmp_path):
 
 
 @pytest.mark.parametrize("k,iters", [(2, 8), (4, 10)])
-def test_commk_packed_equals_flat_kernel_path(grid_mesh, k, iters):
-    """packed x comm_k (the parity-plane kernel per shard,
-    ops/pallas_packed.packed_banded_chunk_sharded) equals the flat
-    banded-kernel-per-shard path elementwise in f64 (no FMA-contraction
-    headroom in interpret mode; isolates static plane parity, the
-    plane-space replica-rim refresh, and the even-crop windowing).
-    iters=10 with k=4 also covers the remainder chunk."""
+def test_commk_even_shards_match_numpy(grid_mesh, k, iters):
+    """64x256 over the 2x4 mesh (32x64 shards), remainder chunk at
+    k=4."""
     img, _ = two_disks(64, 256, noise=6.0)
-    u0 = jnp.asarray(img)  # f64
     p = CVParams()
-    phi0 = init_phi((64, 256), p.init, u0.dtype)
-    a = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=iters,
-                        comm_k=k, phi0=phi0, use_pallas=True,
-                        packed=True, interpret=True)
-    b = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=iters,
-                        comm_k=k, phi0=phi0, use_pallas=True,
-                        packed=False, interpret=True)
-    np.testing.assert_allclose(np.asarray(a.phi), np.asarray(b.phi),
-                               rtol=1e-11, atol=1e-11)
-    np.testing.assert_array_equal(np.asarray(a.mask), np.asarray(b.mask))
-    np.testing.assert_allclose(np.asarray(a.c1), np.asarray(b.c1),
-                               rtol=1e-11)
+    res = segment_sharded(jnp.asarray(img), p, grid_mesh, fixed=True,
+                          max_iter=iters, comm_k=k)
+    _check(res, sweep_np.segment_chunked(img, p, iters,
+                                         _phi0((64, 256), p), k))
 
 
-def test_commk_packed_matches_frozen_means_reference(grid_mesh):
-    """packed x comm_k against the exact-atan jnp frozen-means
-    reference: same class, Cephes-atan envelope (as the flat kernel)."""
-    img, _ = two_disks(64, 256, noise=6.0)
-    u0 = jnp.asarray(img)  # f64
-    p = CVParams()
-    res = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=8,
-                          comm_k=2, use_pallas=True, packed=True,
-                          interpret=True)
-    want = _frozen_means_reference(u0, init_phi((64, 256), p.init,
-                                                u0.dtype), p, 8, 2)
-    np.testing.assert_allclose(np.asarray(res.phi), np.asarray(want),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(res.mask),
-                                  np.asarray(want) >= 0)
-
-
-def test_commk_packed_validation(grid_mesh):
-    p = CVParams()
-    # comm_k = 1 has no scalar chunk loop for packed to ride
-    with pytest.raises(ValueError, match="packed"):
-        segment_sharded(jnp.zeros((64, 256)), p, grid_mesh, comm_k=1,
-                        packed=True, use_pallas=True, interpret=True)
-    # shard h=24 clears the FLAT banded gate (24 % 8 == 0) but not the
-    # packed canvas envelope (canvas height 24 + 16 = 40, 40 % 16 != 0)
-    with pytest.raises(ValueError, match="packed"):
-        segment_sharded(jnp.zeros((48, 256)), p, grid_mesh, comm_k=2,
-                        packed=True, use_pallas=True, interpret=True)
-
-
-@pytest.mark.tpu
-def test_commk_packed_compiled_1x1():
-    """packed x comm_k compiled on the chip (1x1 mesh): mask-agrees with
-    the flat banded-kernel-per-shard path (same chunks, FMA-contraction
-    level phi differences only)."""
-    mesh = meshmod.make_grid_mesh(1, 1)
-    img, gt = two_disks(256, 256, noise=6.0)
-    u = jnp.asarray(img, F32)
-    p = CVParams(init="circle")
-    a = segment_sharded(u, p, mesh, max_iter=16, fixed=True, comm_k=8,
-                        use_pallas=True, packed=True)
-    b = segment_sharded(u, p, mesh, max_iter=16, fixed=True, comm_k=8,
-                        use_pallas=True, packed=False)
-    assert (np.asarray(a.mask) != np.asarray(b.mask)).sum() <= 3
-    # FMA-contraction differences compound fastest at contour cells; a
-    # handful of isolated outliers is the expected envelope (measured:
-    # 3/65536 cells at |d| ~0.2 on phi ~O(100) after 16 iters)
-    d = np.abs(np.asarray(a.phi) - np.asarray(b.phi))
-    assert np.mean(d) < 0.01 and d.max() <= 1.0
-    assert (d > 2e-3 * np.abs(np.asarray(b.phi)) + 2e-3).sum() <= 10
-    # sanity floor only: 16 iterations from circle init is mid-descent
-    # (measured IoU ~0.88); the load-bearing check is packed == flat
-    assert iou(np.asarray(a.mask), gt) >= 0.8
+def test_commk_tolerance_stops_on_chunk_boundary(grid_mesh):
+    """Tolerance mode checks convergence once per chunk, so a converged
+    run stops on a multiple of comm_k."""
+    img, _ = two_disks(48, 96, noise=6.0)
+    p = CVParams(tol=1e-4, max_iter=203, min_iter=4)
+    res = segment_sharded(jnp.asarray(img, F32), p, grid_mesh, comm_k=4)
+    n = int(res.iters)
+    assert n < 203 and n % 4 == 0
 
 
 @pytest.mark.parametrize("trial", range(3))
-def test_commk_packed_fuzz(grid_mesh, trial):
-    """Random params x random even shard geometry: packed x comm_k ==
-    flat-kernel x comm_k elementwise (f64 interpret; includes a
-    remainder chunk and random phi0 so edge/rim/crop logic is hit off
-    the fixture trajectories)."""
+def test_commk_random_matches_numpy(grid_mesh, trial):
+    """Random params x random shard geometry x random phi0, with a
+    remainder chunk: the sharded chunks == the numpy reference."""
     rng = np.random.default_rng(700 + trial)
     k = int(rng.choice([2, 3]))
-    h = int(rng.choice([32, 48] if k == 2 else [24, 40]))
-    w = int(rng.choice([32, 64, 96]))
-    from chan_vese_tpu.parallel.sharded import _packed_banded_shard_ok
-    assert _packed_banded_shard_ok(h, w, k)
+    h = int(rng.choice([24, 32, 40, 48]))
+    w = int(rng.choice([24, 32, 64, 96]))
     H, W = 2 * h, 4 * w
     p = CVParams(mu=float(rng.uniform(10, 2000)),
                  nu=float(rng.uniform(-50, 50)),
@@ -369,67 +240,14 @@ def test_commk_packed_fuzz(grid_mesh, trial):
                  lambda2=float(rng.uniform(0.3, 3.0)),
                  dt=float(rng.uniform(0.1, 2.0)),
                  eps=float(rng.uniform(0.3, 3.0)))
-    u0 = jnp.asarray(rng.uniform(0, 255, (H, W)))
-    phi0 = jnp.asarray(rng.standard_normal((H, W))
-                       * rng.uniform(0.5, 50))
+    u0 = rng.uniform(0, 255, (H, W))
+    phi0 = rng.standard_normal((H, W)) * rng.uniform(0.5, 50)
     iters = 2 * k + 1  # forces a remainder chunk
-    a = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=iters,
-                        comm_k=k, phi0=phi0, use_pallas=True,
-                        packed=True, interpret=True)
-    b = segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=iters,
-                        comm_k=k, phi0=phi0, use_pallas=True,
-                        packed=False, interpret=True)
-    scale = float(jnp.max(jnp.abs(b.phi))) + 1.0
-    np.testing.assert_allclose(np.asarray(a.phi), np.asarray(b.phi),
-                               rtol=1e-11, atol=1e-11 * scale,
+    res = segment_sharded(jnp.asarray(u0), p, grid_mesh, fixed=True,
+                          max_iter=iters, comm_k=k,
+                          phi0=jnp.asarray(phi0))
+    want = sweep_np.segment_chunked(u0, p, iters, phi0, k)
+    scale = float(np.max(np.abs(want))) + 1.0
+    np.testing.assert_allclose(np.asarray(res.phi), want, rtol=1e-9,
+                               atol=1e-9 * scale,
                                err_msg=f"h={h} w={w} k={k} p={p}")
-
-
-@pytest.mark.parametrize("vec", [False, True])
-def test_commk_fusej_auto_plumbs(grid_mesh, monkeypatch, vec):
-    """The sharded chunk fuses the j grid at >= _FUSE_AREA canvases
-    (inf in production: fusej measured +4.7% at 4K 1x1 but a 2576 s
-    Mosaic compile — docs/BENCHMARKS.md round-4). Lowering the
-    threshold must route the SAME program through the fusej kernel
-    bitwise-identically — and the spy proves the flag actually reached
-    the kernel (the dropped-flag bug class of commit e30b6fb)."""
-    from chan_vese_tpu.ops import pallas_banded
-    from chan_vese_tpu.parallel import sharded as sh
-
-    img, _ = two_disks(48, 256, noise=6.0)
-    u0 = jnp.asarray(img)  # f64
-    if vec:
-        u0 = jnp.stack([u0, 0.8 * u0 + 10.0, 255.0 - u0], axis=-1)
-    p = CVParams()
-    phi0 = init_phi((48, 256), p.init, u0.dtype)
-
-    def run():
-        return segment_sharded(u0, p, grid_mesh, fixed=True, max_iter=8,
-                               comm_k=4, phi0=phi0, use_pallas=True,
-                               interpret=True)
-
-    fuse_seen = []
-    orig = (pallas_banded.banded_chunk_mc_sharded if vec
-            else pallas_banded.banded_chunk_sharded)
-    name = ("banded_chunk_mc_sharded" if vec else "banded_chunk_sharded")
-
-    def spy(*a, **kw):
-        fuse_seen.append(kw.get("fuse", False))
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(pallas_banded, name, spy)
-    sh._build_program.cache_clear()
-    base = run()
-    assert fuse_seen and not any(fuse_seen)  # default: small canvas, off
-
-    fuse_seen.clear()
-    monkeypatch.setattr(sh, "_FUSE_AREA", 1)
-    sh._build_program.cache_clear()
-    fused = run()
-    assert fuse_seen and all(fuse_seen)
-
-    sh._build_program.cache_clear()  # drop the spying closures
-    np.testing.assert_array_equal(np.asarray(fused.phi),
-                                  np.asarray(base.phi))
-    np.testing.assert_array_equal(np.asarray(fused.mask),
-                                  np.asarray(base.mask))

@@ -1,29 +1,25 @@
 """Communication-avoiding sharded morph/GAC (parallel/sharded_morph.py)
-and the kernel-routed tolerance-mode drivers (models/morph.py,
-models/morph_gac.py chunked paths).
+and the tolerance-mode morphological drivers.
 
 Equivalence discipline: the state is binary {0,1}, so the GAC chunked
 paths are BITWISE the per-iteration trajectory (no reductions in the
 loop body); ACWE comm_k=1 is bitwise the published per-iteration-means
-scheme; ACWE comm_k>1 is the frozen-means-per-chunk trajectory class
-(identical to the banded kernel's), pinned here against the kernel
-drivers in interpret mode.
+scheme; ACWE comm_k>1 is the frozen-means-per-chunk trajectory class,
+pinned here against the numpy transcription (ops/morph_np.py).
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu.models.morph import (segment_morph, segment_morph_fixed,
-                                        segment_morph_iterations)
-from chan_vese_tpu.models.morph_gac import (segment_gac, segment_gac_fixed,
-                                            segment_gac_iterations)
-from chan_vese_tpu.ops.morph import inverse_gaussian_gradient
-from chan_vese_tpu.parallel.mesh import make_grid_mesh
-from chan_vese_tpu.parallel.sharded_morph import (
+from chan_vese.models.morph import segment_morph, segment_morph_fixed
+from chan_vese.models.morph_gac import segment_gac, segment_gac_fixed
+from chan_vese.ops import morph_np
+from chan_vese.ops.morph import inverse_gaussian_gradient
+from chan_vese.parallel.mesh import make_grid_mesh
+from chan_vese.parallel.sharded_morph import (
     segment_gac_sharded_chunked, segment_morph_sharded_chunked)
-from chan_vese_tpu.params import CVParams
+from chan_vese.params import CVParams
 
 
 def _disk_image(H=96, W=128, r=30, noise=5.0, seed=0):
@@ -104,19 +100,17 @@ def test_morph_sharded_chunked_k1_bitwise():
     np.testing.assert_array_equal(np.asarray(got.ls), np.asarray(want.ls))
 
 
-def test_morph_sharded_chunked_matches_kernel_trajectory():
-    """comm_k=4 sharded == the banded kernel's frozen-means trajectory
-    (segment_morph_iterations k=4, interpret) on the same seeded image:
-    the same chunk algebra through two completely different codepaths
-    (shard_map + halo exchange vs banded DMA pipeline)."""
+def test_morph_sharded_chunked_matches_numpy_frozen_means():
+    """comm_k=4 sharded == the numpy frozen-means-per-chunk ACWE
+    transcription on the same seeded image (shard_map + deep halos vs
+    a plain whole-image loop)."""
     u = _disk_image(seed=3)
     mesh = make_grid_mesh(2, 4)
     p = CVParams(max_iter=32, tol=0.0)
     got = segment_morph_sharded_chunked(u, p, mesh=mesh, smoothing=1,
                                         comm_k=4)
-    want = segment_morph_iterations(u, p, iters=32, smoothing=1,
-                                    use_pallas=True, k=4, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got.ls), np.asarray(want.ls))
+    want = morph_np.morph_acwe(np.asarray(u), _ls0(u, p), 32, 1, k=4)
+    np.testing.assert_array_equal(np.asarray(got.ls), want)
 
 
 def test_morph_sharded_chunked_rgb():
@@ -165,74 +159,62 @@ def test_chunked_rejects_bad_geometry():
 
 
 # --------------------------------------------------------------------------
-# kernel-routed tolerance-mode drivers (single device, interpret)
+# tolerance-mode drivers (single device)
 # --------------------------------------------------------------------------
 
-def test_segment_morph_kernel_route_tolerance():
-    """segment_morph(use_pallas=True) = chunk-granular tolerance through
-    the banded kernel: same converged mask as the jnp path, iterations
-    agree to one chunk, max_iter exactly capped."""
+def test_segment_morph_tolerance_matches_fixed_run():
+    """segment_morph stops on the flip metric; its state equals the
+    fixed-iteration trace driver and the numpy transcription at the
+    iteration it stopped, and max_iter caps exactly."""
     u = _disk_image()
     p = CVParams(max_iter=100, tol=1e-4, patience=4, min_iter=8)
-    ref = segment_morph(u, p, smoothing=1, use_pallas=False)
-    got = segment_morph(u, p, smoothing=1, use_pallas=True, k=4,
-                        interpret=True)
-    np.testing.assert_array_equal(np.asarray(got.mask),
-                                  np.asarray(ref.mask))
-    # chunk-granular stopping: conservative, within one chunk grid
-    assert int(got.iters) % 4 == 0 or int(got.iters) == p.max_iter
-    # exact cap when tol unreachable
-    p0 = CVParams(max_iter=33, tol=0.0)
-    got0 = segment_morph(u, p0, smoothing=1, use_pallas=True, k=4,
-                         interpret=True)
+    got = segment_morph(u, p, smoothing=1)
+    n = int(got.iters)
+    assert 8 <= n < 100
+    want = segment_morph_fixed(u, p, iters=n, smoothing=1)
+    np.testing.assert_array_equal(np.asarray(got.ls), np.asarray(want.ls))
+    np.testing.assert_array_equal(
+        np.asarray(got.ls), morph_np.morph_acwe(np.asarray(u), _ls0(u, p),
+                                                n, 1))
+    got0 = segment_morph(u, CVParams(max_iter=33, tol=0.0), smoothing=1)
     assert int(got0.iters) == 33
 
 
-def test_segment_gac_kernel_route_tolerance():
+def test_segment_gac_tolerance_matches_numpy():
     u = _disk_image(noise=0.0)
     g = inverse_gaussian_gradient(u, alpha=5.0, sigma=3.0)
     p = CVParams(max_iter=200, tol=1e-4, patience=4, min_iter=8)
-    ref = segment_gac(g, p, smoothing=1, balloon=1, threshold=0.3,
-                      use_pallas=False)
-    got = segment_gac(g, p, smoothing=1, balloon=1, threshold=0.3,
-                      use_pallas=True, k=4, interpret=True)
-    np.testing.assert_array_equal(np.asarray(got.mask),
-                                  np.asarray(ref.mask))
-    # trajectory-exact chunks: at the same iteration count the states
-    # are bitwise equal (run both to a fixed cap)
-    p0 = CVParams(max_iter=36, tol=0.0)
-    a = segment_gac(g, p0, smoothing=1, balloon=1, threshold=0.3,
-                    use_pallas=True, k=4, interpret=True)
-    b = segment_gac_fixed(g, p0, iters=36, smoothing=1, balloon=1,
-                          threshold=0.3)
-    np.testing.assert_array_equal(np.asarray(a.ls), np.asarray(b.ls))
+    got = segment_gac(g, p, smoothing=1, balloon=1, threshold=0.3)
+    n = int(got.iters)
+    assert n < 200
+    want = morph_np.morph_gac(np.asarray(g), _ls0(u, p), n, 1, 1, 0.3)
+    np.testing.assert_array_equal(np.asarray(got.ls), want)
 
 
-def test_segment_morph_kernel_route_nan_aborts():
-    u = _disk_image().at[5, 5].set(jnp.nan)
+def test_segment_morph_rgb_nan_aborts():
+    u = jnp.stack([_disk_image()] * 3, axis=-1).at[5, 5, 1].set(jnp.nan)
     p = CVParams(max_iter=100, tol=1e-4, patience=3)
-    res = segment_morph(u, p, use_pallas=True, k=4, interpret=True)
+    res = segment_morph(u, p)
     assert not bool(jnp.isfinite(res.delta))
-    assert int(res.iters) <= 8
+    assert int(res.iters) <= 2
 
 
 def test_sharded_wrappers_pin_jnp_route():
-    """The GSPMD wrappers must force use_pallas=False (a pallas_call is
-    not partitionable); smoke-run on a mesh to prove no kernel routing
-    sneaks in when geometry would support it."""
+    """The GSPMD wrapper runs the unsharded driver's program on sharded
+    arrays: same binary state on a 2x2 mesh."""
     u = _disk_image()
     mesh = make_grid_mesh(2, 2)
-    from chan_vese_tpu.models.morph import segment_morph_sharded
+    from chan_vese.models.morph import segment_morph_sharded
     res = segment_morph_sharded(u, CVParams(max_iter=30), mesh=mesh)
-    ref = segment_morph(u, CVParams(max_iter=30), use_pallas=False)
+    ref = segment_morph(u, CVParams(max_iter=30))
     np.testing.assert_array_equal(np.asarray(res.ls), np.asarray(ref.ls))
 
 
 def test_cli_morph_comm_k(tmp_path):
     """--morph/--morph-gac + --mesh + --comm-k routes the chunked
     communication-avoiding drivers (masks match the comm_k=1 path)."""
-    from chan_vese_tpu.cli import main
-    from chan_vese_tpu.utils import image_io
+    from chan_vese.cli import main
+    from chan_vese.utils import image_io
 
     u = np.asarray(_disk_image(noise=3.0))
     src = tmp_path / "in.npy"
@@ -258,104 +240,64 @@ def test_cli_morph_comm_k(tmp_path):
 
 
 # --------------------------------------------------------------------------
-# kernel-per-shard chunks (banded kernel on the padded local block)
+# chunked sharded drivers against the numpy transcription
 # --------------------------------------------------------------------------
 
-def test_morph_kernel_per_shard_bitwise():
-    """use_pallas=True chunks == the jnp chunk body bitwise (the
-    in-kernel depth-1 rim refresh must reproduce the jnp path's
-    full-depth per-op refresh exactly on owned cells), across a
-    geometry needing BOTH row and column alignment pads."""
-    u = _disk_image(H=96, W=160 + 96)  # w_loc=64 -> rc=128-alignment pad
-    mesh = make_grid_mesh(2, 4)
+def _ls0(u, p):
+    return np.asarray(segment_morph_fixed(u, p, iters=0).ls)
+
+
+def test_morph_chunked_wide_shards_match_numpy():
+    """64-column shards of a 96x256 image on the 2x4 mesh."""
+    u = _disk_image(H=96, W=256)
     p = CVParams(max_iter=12, tol=0.0)
-    a = segment_morph_sharded_chunked(u, p, mesh=mesh, comm_k=4,
-                                      use_pallas=False)
-    b = segment_morph_sharded_chunked(u, p, mesh=mesh, comm_k=4,
-                                      use_pallas=True, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a.ls), np.asarray(b.ls))
+    got = segment_morph_sharded_chunked(u, p, mesh=make_grid_mesh(2, 4),
+                                        comm_k=4)
+    want = morph_np.morph_acwe(np.asarray(u), _ls0(u, p), 12, 1, k=4)
+    np.testing.assert_array_equal(np.asarray(got.ls), want)
 
 
-def test_morph_kernel_per_shard_edge_disk_bitwise():
-    """Contour crossing image edges: global-edge shards exercise the
-    in-kernel rim refresh on all four sides."""
+def test_morph_chunked_edge_disk_matches_numpy():
+    """Contour crossing image edges: global-edge shards refresh their
+    pads on all four sides."""
     u = _edge_disk(96, 128)
-    mesh = make_grid_mesh(2, 2)
     p = CVParams(max_iter=16, tol=0.0)
-    a = segment_morph_sharded_chunked(u, p, mesh=mesh, comm_k=4,
-                                      use_pallas=False)
-    b = segment_morph_sharded_chunked(u, p, mesh=mesh, comm_k=4,
-                                      use_pallas=True, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a.ls), np.asarray(b.ls))
+    got = segment_morph_sharded_chunked(u, p, mesh=make_grid_mesh(2, 2),
+                                        comm_k=4)
+    want = morph_np.morph_acwe(np.asarray(u), _ls0(u, p), 16, 1, k=4)
+    np.testing.assert_array_equal(np.asarray(got.ls), want)
 
 
-def test_gac_kernel_per_shard_bitwise_vs_unsharded():
-    """GAC kernel-per-shard chunks == the UNSHARDED per-iteration
-    trajectory bitwise (trajectory-exact chunks x bitwise kernel x
-    bitwise rim refresh, composed)."""
+def test_gac_chunked_matches_numpy():
+    """GAC chunks == the numpy per-iteration transcription bitwise."""
     u = _disk_image()
     g = inverse_gaussian_gradient(u, alpha=5.0, sigma=3.0)
-    mesh = make_grid_mesh(2, 4)
     p = CVParams(max_iter=12, tol=0.0)
-    got = segment_gac_sharded_chunked(g, p, mesh=mesh, smoothing=1,
-                                      balloon=1, threshold=0.3,
-                                      comm_k=4, use_pallas=True,
-                                      interpret=True)
-    want = segment_gac_fixed(g, p, iters=12, smoothing=1, balloon=1,
-                             threshold=0.3)
-    np.testing.assert_array_equal(np.asarray(got.ls), np.asarray(want.ls))
+    got = segment_gac_sharded_chunked(g, p, mesh=make_grid_mesh(2, 4),
+                                      smoothing=1, balloon=1,
+                                      threshold=0.3, comm_k=4)
+    want = morph_np.morph_gac(np.asarray(g), _ls0(u, p), 12, 1, 1, 0.3)
+    np.testing.assert_array_equal(np.asarray(got.ls), want)
 
 
-def test_kernel_per_shard_remainder_mixes_bitwise():
-    """max_iter % comm_k != 0: full chunks on the kernel, remainder on
-    the jnp body - the mixed run must equal the all-jnp run bitwise."""
+def test_chunked_remainder_matches_numpy():
+    """max_iter % comm_k != 0: two full chunks plus a remainder of 3."""
     u = _disk_image()
     g = inverse_gaussian_gradient(u, alpha=5.0, sigma=3.0)
-    mesh = make_grid_mesh(2, 2)
-    p = CVParams(max_iter=11, tol=0.0)  # 2 full k=4 chunks + rem 3
-    a = segment_gac_sharded_chunked(g, p, mesh=mesh, balloon=1,
-                                    threshold=0.3, comm_k=4,
-                                    use_pallas=False)
-    b = segment_gac_sharded_chunked(g, p, mesh=mesh, balloon=1,
-                                    threshold=0.3, comm_k=4,
-                                    use_pallas=True, interpret=True)
-    np.testing.assert_array_equal(np.asarray(a.ls), np.asarray(b.ls))
+    p = CVParams(max_iter=11, tol=0.0)
+    got = segment_gac_sharded_chunked(g, p, mesh=make_grid_mesh(2, 2),
+                                      balloon=1, threshold=0.3, comm_k=4)
+    assert int(got.iters) == 11
+    want = morph_np.morph_gac(np.asarray(g), _ls0(u, p), 11, 1, 1, 0.3)
+    np.testing.assert_array_equal(np.asarray(got.ls), want)
 
 
-def test_kernel_per_shard_route_rejects_unsupported():
-    u = _disk_image(96, 128)
-    mesh = make_grid_mesh(2, 4)
-    with pytest.raises(ValueError, match="kernel-per-shard"):
-        # odd comm_k*smoothing breaks the static in-kernel parity
-        segment_morph_sharded_chunked(u, CVParams(max_iter=6, tol=0.0),
-                                      mesh=mesh, comm_k=3,
-                                      use_pallas=True, interpret=True)
-
-
-@pytest.mark.tpu
-def test_kernel_per_shard_tpu_compiled_bitwise():
-    """Compiled kernel-per-shard chunks on the real chip (1x1 mesh) ==
-    the jnp chunk body bitwise."""
-    if jax.default_backend() != "tpu":
-        pytest.skip("needs the real chip")
-    rng = np.random.default_rng(30)
-    H, W = 512, 640
-    yy, xx = np.mgrid[:H, :W]
-    img = np.where((yy - 256) ** 2 + (xx - 320) ** 2 < 150 ** 2,
-                   200.0, 0.0) + rng.normal(0, 5, (H, W))
-    u = jnp.asarray(img, jnp.float32)
-    mesh = make_grid_mesh(1, 1)
-    p = CVParams(max_iter=16, tol=0.0)
-    a = segment_morph_sharded_chunked(u, p, mesh=mesh, comm_k=8,
-                                      use_pallas=False)
-    b = segment_morph_sharded_chunked(u, p, mesh=mesh, comm_k=8,
-                                      use_pallas=True)
-    np.testing.assert_array_equal(np.asarray(a.ls), np.asarray(b.ls))
-    g = inverse_gaussian_gradient(u, alpha=5.0, sigma=2.0)
-    ga = segment_gac_sharded_chunked(g, p, mesh=mesh, balloon=1,
-                                     threshold=0.3, comm_k=8,
-                                     use_pallas=False)
-    gb = segment_gac_sharded_chunked(g, p, mesh=mesh, balloon=1,
-                                     threshold=0.3, comm_k=8,
-                                     use_pallas=True)
-    np.testing.assert_array_equal(np.asarray(ga.ls), np.asarray(gb.ls))
+def test_morph_chunked_odd_comm_k_matches_numpy():
+    """An odd comm_k x smoothing (the smoothing alternation changes
+    phase between chunks) keeps the global call counter exact."""
+    u = _disk_image()
+    p = CVParams(max_iter=9, tol=0.0)
+    got = segment_morph_sharded_chunked(u, p, mesh=make_grid_mesh(2, 4),
+                                        comm_k=3)
+    want = morph_np.morph_acwe(np.asarray(u), _ls0(u, p), 9, 1, k=3)
+    np.testing.assert_array_equal(np.asarray(got.ls), want)

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu.cli import main
-from chan_vese_tpu.models.scalar import segment_fixed
-from chan_vese_tpu.params import CVParams
-from chan_vese_tpu.parallel import mesh as meshmod
-from chan_vese_tpu.parallel.sharded import (segment_sharded,
-                                            segment_sharded_fixed_trace)
-from chan_vese_tpu.utils import checkpoint_sharded as cks
-from chan_vese_tpu.utils import image_io, trace
+from chan_vese.cli import main
+from chan_vese.models.scalar import segment_fixed
+from chan_vese.params import CVParams
+from chan_vese.parallel import mesh as meshmod
+from chan_vese.parallel.sharded import (segment_sharded,
+                                        segment_sharded_fixed_trace)
+from chan_vese.utils import checkpoint_sharded as cks
+from chan_vese.utils import image_io, trace
 from fixtures import colored_squares, two_disks
 
 F32 = jnp.float32
@@ -46,7 +46,7 @@ def test_sharded_trace_matches_unsharded(grid_mesh):
 
 
 def test_sharded_trace_vector(grid_mesh):
-    from chan_vese_tpu.models.vector import segment_vector_fixed
+    from chan_vese.models.vector import segment_vector_fixed
 
     img, _ = colored_squares(32, 64, noise=4.0)
     u0 = jnp.asarray(img)
@@ -90,8 +90,8 @@ def test_sharded_checkpoint_roundtrip_and_resume(grid_mesh, tmp_path):
 
 
 def test_multiphase_checkpoint_resume(tmp_path):
-    from chan_vese_tpu.models.multiphase import segment_multiphase
-    from chan_vese_tpu.utils.checkpoint import (
+    from chan_vese.models.multiphase import segment_multiphase
+    from chan_vese.utils.checkpoint import (
         segment_multiphase_with_checkpoints)
     from fixtures import four_regions
 
@@ -111,8 +111,8 @@ def test_multiphase_checkpoint_resume(tmp_path):
 
 
 def test_vector_checkpoint(tmp_path):
-    from chan_vese_tpu.models.vector import segment_vector_fixed
-    from chan_vese_tpu.utils.checkpoint import segment_with_checkpoints
+    from chan_vese.models.vector import segment_vector_fixed
+    from chan_vese.utils.checkpoint import segment_with_checkpoints
 
     img, _ = colored_squares(32, 64, noise=4.0)
     u0 = jnp.asarray(img, F32)
@@ -156,14 +156,14 @@ def test_cli_color_checkpoint(tmp_path):
                "--checkpoint-dir", str(ck), "--checkpoint-every", "4",
                "--quiet", "-o", str(tmp_path / "m.png")])
     assert rc == 0
-    from chan_vese_tpu.utils.checkpoint import latest
+    from chan_vese.utils.checkpoint import latest
     assert latest(ck) is not None
 
 
 def test_multiphase_checkpoint_reinit_alignment(tmp_path):
     """Misaligned chunking would silently shift the reinit cadence
     (the chunk counter restarts at 0); it must be rejected."""
-    from chan_vese_tpu.utils.checkpoint import (
+    from chan_vese.utils.checkpoint import (
         segment_multiphase_with_checkpoints)
 
     u0 = jnp.zeros((32, 64), F32)
@@ -175,10 +175,10 @@ def test_multiphase_checkpoint_reinit_alignment(tmp_path):
 
 
 def test_multiphase_checkpoint_rerun_after_completion(tmp_path):
-    """Re-running a completed job returns the restored state (the
-    resident route used to raise on the cap=0 final call)."""
-    from chan_vese_tpu.models import multiphase as mp
-    from chan_vese_tpu.utils.checkpoint import (
+    """Re-running a completed job returns the restored state (a cap=0
+    final call is a no-op)."""
+    from chan_vese.models import multiphase as mp
+    from chan_vese.utils.checkpoint import (
         segment_multiphase_with_checkpoints)
     from fixtures import four_regions
 
@@ -188,9 +188,8 @@ def test_multiphase_checkpoint_rerun_after_completion(tmp_path):
     ckdir = tmp_path / "mp0"
     res = segment_multiphase_with_checkpoints(u0, p, iters=6,
                                               ckpt_dir=ckdir, every=6)
-    # resident-route rerun: explicitly exercise the cap=0 guard
-    res0 = mp.segment_multiphase(u0, p, phis0=res.phis, use_pallas=True,
-                                 interpret=True, fixed=True, max_iter=0)
+    res0 = mp.segment_multiphase(u0, p, phis0=res.phis, fixed=True,
+                                 max_iter=0)
     np.testing.assert_array_equal(np.asarray(res0.phis),
                                   np.asarray(res.phis))
     assert int(res0.iters) == 0

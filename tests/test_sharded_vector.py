@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu.params import CVParams
-from chan_vese_tpu.parallel import mesh as meshmod
-from chan_vese_tpu.parallel.sharded import segment_sharded
+from chan_vese.params import CVParams
+from chan_vese.parallel import mesh as meshmod
+from chan_vese.parallel.sharded import segment_sharded
 from fixtures import colored_squares, iou
 
 F32 = jnp.float32
@@ -21,7 +21,7 @@ def grid_mesh():
 
 
 def test_sharded_rgb_matches_unsharded(grid_mesh):
-    from chan_vese_tpu.models.vector import segment_vector_fixed
+    from chan_vese.models.vector import segment_vector_fixed
 
     img, gt = colored_squares(64, 64, noise=4.0)
     u = jnp.asarray(img, F32)
@@ -35,7 +35,7 @@ def test_sharded_rgb_matches_unsharded(grid_mesh):
 
 
 def test_sharded_rgb_single_iteration_tight(grid_mesh):
-    from chan_vese_tpu.models.vector import segment_vector_fixed
+    from chan_vese.models.vector import segment_vector_fixed
 
     img, _ = colored_squares(64, 64, noise=4.0)
     u = jnp.asarray(img, jnp.float64)

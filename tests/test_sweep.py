@@ -8,9 +8,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from chan_vese_tpu.ops import sweep, sweep_np
-from chan_vese_tpu.ops.reductions import data_term, region_means
-from chan_vese_tpu.params import CVParams
+from chan_vese.ops import sweep, sweep_np
+from chan_vese.ops.reductions import data_term, region_means
+from chan_vese.params import CVParams
 
 F64 = jnp.float64
 

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu.ops.diffusion import perona_malik
-from chan_vese_tpu.ops.reinit import reinit
-from chan_vese_tpu.utils import image_io
+from chan_vese.ops.diffusion import perona_malik
+from chan_vese.ops.reinit import reinit
+from chan_vese.utils import image_io
 
 F64 = jnp.float64
 

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from chan_vese_tpu import CVParams
-from chan_vese_tpu.models.vector import segment_vector, segment_vector_fixed
+from chan_vese import CVParams
+from chan_vese.models.vector import segment_vector, segment_vector_fixed
 from fixtures import colored_squares, iou
 
 F64 = jnp.float64
@@ -32,7 +32,7 @@ def test_rgb_512_config2():
 def test_per_channel_lambda_selects_channel():
     """Zeroing all but one channel's weights reduces to scalar CV on that
     channel (up to the 1/C averaging of the vector energy)."""
-    from chan_vese_tpu import segment_fixed
+    from chan_vese import segment_fixed
 
     img, gt = colored_squares(48, 48, noise=3.0)
     u = jnp.asarray(img, F64)
@@ -58,7 +58,7 @@ def test_energy_decreases_rgb():
 def test_gray_stack_equals_scalar():
     """An RGB image with identical channels must reproduce the scalar path
     exactly (same means, same data term, same sweep)."""
-    from chan_vese_tpu import segment_fixed
+    from chan_vese import segment_fixed
     from fixtures import two_disks
 
     img, _ = two_disks(32, 32, noise=4.0)
